@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``cmf_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run on its own failure:
+
+1. device   -- the card's name and power limit; TF32 off.
+2. build    -- nvcc builds ``cmf_tpu_torch/csrc/gram_logdet.cu`` for sm_90a.
+3. kernels  -- each kernel against its plain PyTorch version on the card, at
+               the main-path shape (d=21, B=400, D=43) and edge shapes; a
+               rank-deficient input must give a non-finite log-det; times of
+               the kernel, the plain version and a library yardstick.
+4. train    -- the port's CLI trains miniboone non-square at full width with
+               the likelihood on from step 1; the kernels' launch counts must
+               equal the likelihood steps; then one step on the card against
+               the same step on the CPU (plain path), loss and every gradient.
+
+It prints a ``{"kernels": [...]}`` line, then, as its last line,
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result. It imports nothing of JAX and nothing of ``cmf_tpu``.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+# Main-path shape of the kernels: latent d, batch B, ambient D (miniboone).
+MAIN_SHAPE = (21, 400, 43)
+EDGE_SHAPES = [(1, 400, 43), (32, 400, 128), (21, 1, 43)]
+# fp32 kernels against fp32 torch ops that sum in another order: error over
+# the reference's largest magnitude (at least 1).
+FWD_TOL = 1e-4
+BWD_TOL = 1e-3
+# One training step on the card against the same step on the CPU: ten
+# coupling layers of [128]x4 tanh MLPs, a 21x21 Cholesky and its gradient,
+# each side summing in its own order.
+STEP_LOSS_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
+# H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+
+TRAIN_ARGV = [
+    "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
+    "--config", "likelihood_warmup=False", "--config", "max_epochs=2",
+    "--config", "max_dataset_size=4000", "--config", "seed=0",
+    # Validation / early stopping and FID wait for a later slice of the port,
+    # which refuses a config that asks for them.
+    "--config", "early_stopping=False", "--config", "use_fid=False",
+]
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max(1, max |ref|)."""
+    got, ref = got.double(), ref.double()
+    scale = max(1.0, float(ref.abs().max()))
+    return float((got - ref).abs().max()) / scale
+
+
+def cuda_ms(fn, iters=200, warmup=10):
+    """Mean time per call of back-to-back calls, from CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_device_ms(fn, name, iters=50):
+    """Device time per call of the kernels whose name contains ``name``, from
+    torch.profiler; None where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        for e in prof.key_averages()
+        if name in e.key
+    )
+    return total_us / iters / 1e3 if total_us else None
+
+
+def bound_ms(n_bytes, n_flops):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_device():
+    import torch
+    from cmf_tpu_torch.device import pin_fp32
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[device] nvidia-smi: {smi}")
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, {name}, "
+          f"{torch.cuda.device_count()} device(s)")
+    pin_fp32()
+    return name, smi
+
+
+def phase_build():
+    from cmf_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.build(["gram_logdet"])
+    cuda_build.load_library("gram_logdet")
+    print(f"[build] gram_logdet.cu built and loaded in {time.perf_counter() - t0:.2f} s")
+    for line in cuda_build.BUILD_LOGS.get("gram_logdet", "").splitlines():
+        if "registers" in line or "spill" in line or "error" in line.lower():
+            print(f"[build]   {line.strip()}")
+
+
+def phase_kernels():
+    import torch
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def cols(d, b, big_d):
+        return torch.randn((d, b, big_d), device=dev, generator=gen)
+
+    def fwd_errs(j):
+        g_k, ld_k, l_k = gl.gram_logdet_fwd_cuda(j)
+        g_p, ld_p, l_p = gl.gram_logdet_plain(j)
+        torch.cuda.synchronize()
+        rel = max(rel_err(g_k, g_p), rel_err(l_k, l_p), rel_err(ld_k, ld_p))
+        absd = max(float((a - b).abs().max()) for a, b in ((g_k, g_p), (l_k, l_p), (ld_k, ld_p)))
+        return rel, absd
+
+    def loss_terms(j, w_ld, c_off):
+        d = j.shape[0]
+        off = 1.0 - torch.eye(d, device=dev)
+        return lambda g, ld: (ld * w_ld).sum() + c_off * (g * off).abs().sum()
+
+    def bwd_errs(j):
+        b = j.shape[1]
+        w_ld = torch.randn((b,), device=dev, generator=gen)
+        f = loss_terms(j, w_ld, 0.3)
+        jk = j.clone().requires_grad_(True)
+        f(*gl.fused_gram_logdet(jk)).backward()
+        jp = j.clone().requires_grad_(True)
+        g_p, ld_p, _ = gl.gram_logdet_plain(jp)
+        f(g_p, ld_p).backward()
+        torch.cuda.synchronize()
+        return rel_err(jk.grad, jp.grad), float((jk.grad - jp.grad).abs().max())
+
+    results = {}
+    for shape in [MAIN_SHAPE] + EDGE_SHAPES:
+        j = cols(*shape)
+        f_rel, f_abs = fwd_errs(j)
+        b_rel, b_abs = bwd_errs(j)
+        print(f"[kernels] d,B,D={shape}: fwd max rel err {f_rel:.3e} (tol {FWD_TOL:g}), "
+              f"abs {f_abs:.3e}; bwd max rel err {b_rel:.3e} (tol {BWD_TOL:g}), abs {b_abs:.3e}")
+        assert f_rel <= FWD_TOL, f"forward kernel disagrees with its plain version at {shape}"
+        assert b_rel <= BWD_TOL, f"backward kernel disagrees with autograd through the plain version at {shape}"
+        results[shape] = (f_abs, b_abs)
+
+    # The backward kernel on its own against the plain dJ formula, with a
+    # nonzero Ḡ and ḡ_ld.
+    d, b, big_d = MAIN_SHAPE
+    j = cols(d, b, big_d)
+    _, _, l_k = gl.gram_logdet_fwd_cuda(j)
+    gbar = torch.randn((b, d, d), device=dev, generator=gen)
+    ldbar = torch.randn((b,), device=dev, generator=gen)
+    dj_k = gl.gram_logdet_bwd_cuda(j, l_k, gbar, ldbar)
+    dj_p = gl.gram_logdet_bwd_plain(j, l_k, gbar, ldbar)
+    direct = rel_err(dj_k, dj_p)
+    print(f"[kernels] bwd kernel vs plain dJ formula at {MAIN_SHAPE}: max rel err {direct:.3e} (tol {BWD_TOL:g})")
+    assert direct <= BWD_TOL, "backward kernel disagrees with the plain dJ formula"
+
+    # Rank-deficient Jacobian (rank 2 < d): the log-det must not be finite.
+    base = cols(2, 64, big_d)
+    j_def = torch.cat([base, base[:1], base[1:2]], dim=0).contiguous()
+    _, ld_def, _ = gl.gram_logdet_fwd_cuda(j_def)
+    n_bad = int((~torch.isfinite(ld_def)).sum())
+    print(f"[kernels] rank-deficient J (d=4, rank 2, B=64): {n_bad}/64 non-finite log-dets")
+    assert n_bad > 0, "rank-deficient Jacobian gave an all-finite log-det"
+
+    # Times at the main-path shape. J (1.4 MB) stays in the 50 MB L2 between
+    # calls, as it does in a training step right after the decode.
+    j = cols(*MAIN_SHAPE)
+    g_k, ld_k, l_k = gl.gram_logdet_fwd_cuda(j)
+    gbar = torch.randn((b, d, d), device=dev, generator=gen)
+    ldbar = torch.randn((b,), device=dev, generator=gen)
+
+    def fwd_library():
+        g = torch.bmm(j.permute(1, 0, 2), j.permute(1, 2, 0))
+        l, _ = torch.linalg.cholesky_ex(g)
+        return 2.0 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
+
+    jt = j.permute(1, 0, 2)  # (B, d, D)
+
+    def bwd_library():
+        m = gbar + gbar.transpose(-1, -2) + 2.0 * ldbar[:, None, None] * torch.cholesky_inverse(l_k)
+        return torch.bmm(m, jt)
+
+    # Each input read once, each output written once, fp32. Forward: J in;
+    # G, L and the log-det out. Backward: J, L, Ḡ and ḡ_ld in; dJ out.
+    f32 = 4
+    fwd_bytes = f32 * (d * b * big_d + 2 * b * d * d + b)
+    fwd_flops = b * (d * (d + 1) * big_d + d ** 3 / 3 + 2 * d)
+    bwd_bytes = f32 * (2 * d * b * big_d + 2 * b * d * d + b)
+    bwd_flops = b * (2 * d ** 3 / 3 + 2 * d * d * big_d + 3 * d * d)
+    kernels = []
+    for name, kern, plain, lib, n_bytes, n_flops, replaces, launches_key in (
+        ("gram_logdet_fwd", lambda: gl.gram_logdet_fwd_cuda(j), lambda: gl.gram_logdet_plain(j),
+         fwd_library, fwd_bytes, fwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:75", "FWD_LAUNCHES"),
+        ("gram_logdet_bwd", lambda: gl.gram_logdet_bwd_cuda(j, l_k, gbar, ldbar),
+         lambda: gl.gram_logdet_bwd_plain(j, l_k, gbar, ldbar),
+         bwd_library, bwd_bytes, bwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:109", "BWD_LAUNCHES"),
+    ):
+        ms = cuda_ms(kern)
+        device_ms = profiled_device_ms(kern, f"{name}_kernel")
+        plain_ms = cuda_ms(plain, iters=20, warmup=2)
+        library_ms = cuda_ms(lib, iters=50, warmup=3)
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
+        print(f"[kernels] {name}: {ms:.6f} ms per call back to back, kernel device time {dev_txt}, "
+              f"plain {plain_ms:.6f} ms, library {library_ms:.6f} ms, bound {b_ms:.6f} ms "
+              f"({b_by}: {n_bytes} B, {n_flops:.4g} FLOP)")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "cmf_tpu_torch/csrc/gram_logdet.cu",
+            "replaces": replaces, "launches": None, "_launches_key": launches_key,
+            "max_abs_err": results[MAIN_SHAPE][0 if name.endswith("fwd") else 1],
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        })
+    return kernels
+
+
+def phase_train():
+    import torch
+    from cmf_tpu_torch.densities import nonsquare
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.training import elbo_loss
+
+    gl.reset_launch_counts()
+    nonsquare.LOGDET_FALLBACKS = 0
+    t0 = time.perf_counter()
+    (setup,) = cli_main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = {"FWD_LAUNCHES": gl.FWD_LAUNCHES, "BWD_LAUNCHES": gl.BWD_LAUNCHES}
+    fallbacks = nonsquare.LOGDET_FALLBACKS
+
+    trainer = setup["trainer"]
+    losses = [h[1] for h in trainer.history]
+    lik_steps = sum(1 for h in trainer.history if not h[3])
+    print(f"[train] {len(losses)} steps in {train_s:.2f} s (first epoch includes warm-up); "
+          f"losses {losses[0]:.6g} -> {losses[-1]:.6g}")
+    print(f"[train] likelihood steps {lik_steps}; FWD_LAUNCHES {counts['FWD_LAUNCHES']}, "
+          f"BWD_LAUNCHES {counts['BWD_LAUNCHES']}; jitter fallbacks {fallbacks}")
+    assert all(torch.isfinite(torch.tensor(losses))), "non-finite training loss"
+    assert lik_steps == len(losses) > 0, "the likelihood was off for some steps"
+    assert counts["FWD_LAUNCHES"] == lik_steps, "forward kernel launches != likelihood steps"
+    assert counts["BWD_LAUNCHES"] == lik_steps, "backward kernel launches != likelihood steps"
+
+    # Step time at full width, after warm-up.
+    flags = trainer.objective.for_epoch(trainer.epoch)
+    x = next(iter(trainer.train_loader))
+    n_steps = 20
+    trainer.step(x, flags)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        trainer.step(x, flags)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    print(f"[train] {step_ms:.4f} ms per step, {x.shape[0] / step_ms * 1e3:.1f} samples/s "
+          f"(batch {x.shape[0]}, {n_steps} steps, host clock)")
+
+    # Where a step's device time goes.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            trainer.step(x, flags)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Device-side events only (kernels, copies, fills): an aten op's own
+    # device time would count its kernels a second time, and so would the
+    # spans on the device timeline named after a host region (the
+    # optimizer's step and zero_grad), which overlap the kernels they hold.
+    averages = prof.key_averages()
+    host_keys = {e.key for e in averages if e.device_type == torch.autograd.DeviceType.CPU}
+    rows = sorted(
+        (
+            (getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)), e.key, e.count)
+            for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host_keys
+        ),
+        reverse=True,
+    )
+    busy = sum(r[0] for r in rows)
+    if busy:
+        print(f"[train] profile of 5 steps: {sum(r[2] for r in rows) // 5} device ops/step, busy "
+              f"{busy / 5 / 1e3:.4f} ms/step of {wall_us / 5 / 1e3:.4f} ms/step wall "
+              f"(idle share {1 - busy / wall_us:.3f})")
+        for dt, key, count in rows[:12]:
+            print(f"[train]   {dt / 5 / 1e3:9.4f} ms/step  x{count // 5:<4d} {key[:90]}")
+    else:
+        print("[train] profile: no device time in the trace (not measured)")
+
+    # One step on the card against the same step on the CPU, same weights
+    # and batch.
+    gpu = trainer.density
+    cpu = get_density(setup["schema"], x_shape=tuple(x.shape[1:]), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    results = []
+    for model, xb in ((gpu, x), (cpu, x.cpu())):
+        model.zero_grad(set_to_none=True)
+        loss = elbo_loss(model, xb, flags)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+    (loss_g, grads_g), (loss_c, grads_c) = results
+    loss_err = abs(loss_g - loss_c) / max(1.0, abs(loss_c))
+    scale = max(float(g.abs().max()) for g in grads_c.values())
+    worst = max(grads_c, key=lambda n: float((grads_g[n] - grads_c[n]).abs().max()))
+    grad_err = float((grads_g[worst] - grads_c[worst]).abs().max()) / scale
+    print(f"[train] card vs CPU step: loss {loss_g:.8g} vs {loss_c:.8g}, rel err {loss_err:.3e} "
+          f"(tol {STEP_LOSS_TOL:g}); max grad err / max |grad| {grad_err:.3e} (tol {STEP_GRAD_TOL:g}) "
+          f"over {len(grads_c)} tensors, worst `{worst}'")
+    assert loss_err <= STEP_LOSS_TOL, "loss on the card disagrees with the CPU step"
+    assert grad_err <= STEP_GRAD_TOL, "gradients on the card disagree with the CPU step"
+    return counts
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing was run", file=sys.stderr)
+        return 1
+    name, smi = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    counts = phase_train()
+    for k in kernels:
+        k["launches"] = counts[k.pop("_launches_key")]
+    print(json.dumps({"kernels": kernels}))
+    print(f"{smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""Affine coupling layers (``cmf_tpu/bijections/coupling.py`` in torch).
+
+Transform convention (reference acl.py:43-46): on the modified half,
+z = (x + t)·exp(s); inverse x = z·exp(−s) − t. Log-jac is Σ s over the
+modified elements. This slice carries the alternating-channel mask, the only
+one the flat tabular schemas use.
+"""
+
+import numpy as np
+import torch
+
+from .base import Bijection
+
+
+class AlternatingChannelwiseCouplingBijection(Bijection):
+    """Even channels pass through (odd when reverse_mask) — acl.py:192-214.
+    With 43 channels the even mask passes 22 and modifies 21; the reversed
+    mask passes 21 and modifies 22."""
+
+    def __init__(self, x_shape, coupler_factory, reverse_mask):
+        super().__init__(x_shape=x_shape, z_shape=x_shape)
+        num_channels = x_shape[0]
+        pass_idx = np.arange(1 if reverse_mask else 0, num_channels, 2)
+        mod_idx = np.arange(0 if reverse_mask else 1, num_channels, 2)
+        assert pass_idx.size > 0, "Not a bijection without passthrough"
+        self.coupler = coupler_factory(int(pass_idx.size))
+        self.reverse_mask = reverse_mask
+        inv = np.argsort(np.concatenate([pass_idx, mod_idx]))
+        self.register_buffer("pass_idx", torch.as_tensor(pass_idx), persistent=False)
+        self.register_buffer("mod_idx", torch.as_tensor(mod_idx), persistent=False)
+        self.register_buffer("inv_perm", torch.as_tensor(inv), persistent=False)
+
+    def _split(self, x):
+        return x[:, self.pass_idx], x[:, self.mod_idx]
+
+    def _combine(self, passthrough, modified):
+        return torch.cat([passthrough, modified], dim=1)[:, self.inv_perm]
+
+    def forward(self, x):
+        passthrough, modified = self._split(x)
+        shift, log_scale = self.coupler(passthrough)
+        z = self._combine(passthrough, (modified + shift) * torch.exp(log_scale))
+        return z, log_scale.reshape(x.shape[0], -1).sum(dim=1)
+
+    def inverse(self, z):
+        passthrough, modified = self._split(z)
+        shift, log_scale = self.coupler(passthrough)
+        x = self._combine(passthrough, modified * torch.exp(-log_scale) - shift)
+        return x, -log_scale.reshape(z.shape[0], -1).sum(dim=1)

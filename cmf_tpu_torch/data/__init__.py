@@ -1,0 +1,10 @@
+from .loaders import ArrayLoader, get_loaders
+from .tabular import DATASET_SHAPES, get_synthetic_tabular, get_tabular_datasets
+
+__all__ = [
+    "ArrayLoader",
+    "DATASET_SHAPES",
+    "get_loaders",
+    "get_synthetic_tabular",
+    "get_tabular_datasets",
+]

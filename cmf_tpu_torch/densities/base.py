@@ -1,0 +1,23 @@
+"""Density protocol (``cmf_tpu/densities/base.py`` in torch).
+
+A density is an ``nn.Module`` holding its parameters (``nn.Parameter``) and
+its state (persistent buffers: permutations, fixed samples), nested under the
+same keys as the JAX package's ``{"params", "state"}`` trees, so
+``interop.variables_from_jax`` can load one into the other.
+
+* ``elbo(x, **kw) -> info`` — info always has "elbo" (B,); inside a
+  non-square chain it also carries "low_dim_x" and "low_dim_elbo" bubbled up
+  from the tail.
+* ``decode(u) -> x`` — the injective decoder g: ℝᵈ→ℝᴰ of the non-square
+  chain.
+"""
+
+from torch import nn
+
+
+class Density(nn.Module):
+    def elbo(self, x, **kw):
+        raise NotImplementedError
+
+    def decode(self, u):
+        raise NotImplementedError(f"{type(self).__name__} is not part of a non-square chain")

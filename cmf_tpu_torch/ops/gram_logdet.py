@@ -1,0 +1,179 @@
+"""Fused JᵀJ Gram + Cholesky + log-det, forward and backward
+(``cmf_tpu/ops/pallas/gram_logdet.py`` in torch).
+
+The two kernels are CUDA C++ for Hopper in ``csrc/gram_logdet.cu`` (the
+source says which TPU kernel each replaces and what bounds it). Beside them
+are their plain PyTorch versions: ``gram_logdet_plain`` (``gram_from_columns``
++ an un-jittered Cholesky log-det) and ``gram_logdet_bwd_plain`` (the same dJ
+formula in torch ops).
+
+``fused_gram_logdet`` dispatches on the tensor's device only: on a CUDA
+tensor it launches the kernels or raises; on a CPU tensor it takes the plain
+versions. ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count kernel launches, so a run
+can show that its main path went through them.
+"""
+
+import ctypes
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from .chol import _cholesky
+from .gram import gram_from_columns
+
+# Size gate of the kernels (gram_logdet.py:44-45): shared-memory tiles are
+# sized for it. The caller routes larger shapes to the plain Gram + jittered
+# Cholesky, as cmf_tpu does (nonsquare.py:248-266).
+MAX_D_LATENT = 32
+MAX_D_AMBIENT = 128
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+
+def reset_launch_counts():
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    FWD_LAUNCHES = 0
+    BWD_LAUNCHES = 0
+
+
+def fused_gram_logdet_available(d, big_d):
+    return 1 <= d <= MAX_D_LATENT and 1 <= big_d <= MAX_D_AMBIENT
+
+
+# ------------------------------------------------------------ plain versions
+def gram_logdet_plain(jac_cols):
+    """(d, B, D) → (gram (B,d,d), logdet (B,), L (B,d,d)); differentiable
+    torch ops, NaN where the Gram is not PD."""
+    gram = gram_from_columns(jac_cols)
+    L = _cholesky(gram)
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(dim=-1)
+    return gram, logdet, L
+
+
+def gram_logdet_bwd_plain(jac_cols, L, gbar, ldbar):
+    """dJ[i] = Σ_j (Ḡ[i,j] + Ḡ[j,i] + 2·ḡ_ld·G⁻¹[i,j]) · J[j], G⁻¹ from L.
+    Where ḡ_ld is 0 the G⁻¹ term is dropped, as in the kernel."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+    X = torch.linalg.solve_triangular(L, eye, upper=False)
+    ginv = X.transpose(-1, -2) @ X
+    ld = ldbar[:, None, None]
+    M = gbar + gbar.transpose(-1, -2) + torch.where(ld != 0, 2.0 * ld * ginv, torch.zeros_like(ginv))
+    return torch.einsum("bij,jbD->ibD", M, jac_cols)
+
+
+# ------------------------------------------------------------- CUDA kernels
+def _lib():
+    from .cuda_build import load_library
+
+    lib = load_library("gram_logdet")
+    # Without argtypes ctypes passes a Python int as a 32-bit C int, which
+    # cuts a device pointer.
+    if lib.cmf_gram_logdet_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cmf_gram_logdet_fwd.argtypes = [p, p, p, p, i, i, i, p]
+        lib.cmf_gram_logdet_fwd.restype = ctypes.c_int
+        lib.cmf_gram_logdet_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.cmf_gram_logdet_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, t, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _shape(jac_cols):
+    if jac_cols.dim() != 3:
+        raise ValueError(f"jac_cols: expected (d, B, D), got {tuple(jac_cols.shape)}")
+    d, b, big_d = jac_cols.shape
+    if not fused_gram_logdet_available(d, big_d) or b < 1:
+        raise ValueError(
+            f"gram_logdet kernel takes 1 ≤ d ≤ {MAX_D_LATENT}, 1 ≤ D ≤ {MAX_D_AMBIENT}, "
+            f"B ≥ 1; got d={d}, B={b}, D={big_d}"
+        )
+    return d, b, big_d
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {rc}")
+
+
+def gram_logdet_fwd_cuda(jac_cols):
+    """Kernel 1: (d, B, D) → (gram (B,d,d), logdet (B,), L (B,d,d))."""
+    global FWD_LAUNCHES
+    d, b, big_d = _shape(jac_cols)
+    _check("jac_cols", jac_cols, (d, b, big_d))
+    gram = torch.empty((b, d, d), dtype=torch.float32, device=jac_cols.device)
+    L = torch.empty_like(gram)
+    logdet = torch.empty((b,), dtype=torch.float32, device=jac_cols.device)
+    lib = _lib()
+    with torch.cuda.device(jac_cols.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.cmf_gram_logdet_fwd(
+            jac_cols.data_ptr(), gram.data_ptr(), logdet.data_ptr(), L.data_ptr(),
+            d, b, big_d, stream,
+        )
+    _raise_on(rc, "gram_logdet forward")
+    FWD_LAUNCHES += 1
+    return gram, logdet, L
+
+
+def gram_logdet_bwd_cuda(jac_cols, L, gbar, ldbar):
+    """Kernel 2: dJ (d, B, D) from J, the saved L, Ḡ (B,d,d) and ḡ_ld (B,)."""
+    global BWD_LAUNCHES
+    d, b, big_d = _shape(jac_cols)
+    _check("jac_cols", jac_cols, (d, b, big_d))
+    _check("L", L, (b, d, d))
+    _check("gbar", gbar, (b, d, d))
+    _check("ldbar", ldbar, (b,))
+    djac = torch.empty_like(jac_cols)
+    lib = _lib()
+    with torch.cuda.device(jac_cols.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.cmf_gram_logdet_bwd(
+            jac_cols.data_ptr(), L.data_ptr(), gbar.data_ptr(), ldbar.data_ptr(),
+            djac.data_ptr(), d, b, big_d, stream,
+        )
+    _raise_on(rc, "gram_logdet backward")
+    BWD_LAUNCHES += 1
+    return djac
+
+
+class _FusedGramLogdet(torch.autograd.Function):
+    """Forward launches kernel 1 and saves (J, L); backward launches
+    kernel 2. On CPU tensors both take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, jac_cols):
+        if jac_cols.is_cuda:
+            gram, logdet, L = gram_logdet_fwd_cuda(jac_cols)
+        else:
+            gram, logdet, L = gram_logdet_plain(jac_cols)
+        ctx.save_for_backward(jac_cols, L)
+        return gram, logdet
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gbar, ldbar):
+        jac_cols, L = ctx.saved_tensors
+        gbar, ldbar = gbar.contiguous(), ldbar.contiguous()
+        if jac_cols.is_cuda:
+            return gram_logdet_bwd_cuda(jac_cols, L, gbar, ldbar)
+        return gram_logdet_bwd_plain(jac_cols, L, gbar, ldbar)
+
+
+def fused_gram_logdet(jac_cols):
+    """(d, B, D) Jacobian columns → (gram (B,d,d), logdet (B,)).
+
+    Same semantics as ``gram_from_columns`` + one un-jittered Cholesky
+    log-det: NaN where the Gram is not PD. The caller keeps the jitter
+    fallback (densities/nonsquare.py)."""
+    return _FusedGramLogdet.apply(jac_cols)

@@ -1,0 +1,128 @@
+"""The port's fused Gram + Cholesky + log-det (``cmf_tpu_torch/ops/
+gram_logdet.py``) against the JAX package's Pallas kernel in interpret mode
+and against its plain Gram + jittered Cholesky.
+
+On the CPU the wrapper takes the kernels' plain versions, which these tests
+hold to the JAX reference. The CUDA kernels themselves are held against the
+same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmf_tpu.ops import cholesky_logdet, gram_from_columns
+from cmf_tpu.ops.pallas.gram_logdet import fused_gram_logdet as jax_fused
+from cmf_tpu_torch.ops import gram_logdet as gl
+
+# fp32 on both sides, summed in another order.
+VALUE_TOL = 1e-4
+GRAD_TOL = 1e-3
+
+
+def _cols(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _loss_torch(gram, ld, w_ld, c_off):
+    off = 1.0 - torch.eye(gram.shape[-1])
+    return (ld * w_ld).sum() + c_off * (gram * off).abs().sum()
+
+
+def _loss_jax(gram, ld, w_ld, c_off):
+    off = 1.0 - jnp.eye(gram.shape[-1])
+    return jnp.sum(ld * w_ld) + c_off * jnp.sum(jnp.abs(gram * off))
+
+
+@pytest.mark.parametrize("shape", [(5, 20, 11), (1, 5, 7), (3, 200, 6), (4, 1, 9)])
+def test_plain_forward_matches_jax(shape):
+    cols = _cols(shape, seed=sum(shape))
+    gram, ld = gl.fused_gram_logdet(torch.as_tensor(cols))
+    gram_k, ld_k = jax_fused(jnp.asarray(cols), True)
+    gram_r = gram_from_columns(jnp.asarray(cols))
+    ld_r, _ = cholesky_logdet(gram_r)
+    for ref_g, ref_ld in ((gram_k, ld_k), (gram_r, ld_r)):
+        np.testing.assert_allclose(gram.numpy(), np.asarray(ref_g), rtol=VALUE_TOL, atol=VALUE_TOL)
+        np.testing.assert_allclose(ld.numpy(), np.asarray(ref_ld), rtol=VALUE_TOL, atol=VALUE_TOL)
+
+
+@pytest.mark.parametrize("shape", [(5, 20, 11), (1, 5, 7), (3, 200, 6)])
+def test_plain_backward_matches_jax(shape):
+    """Gradient of a log-det term and an |off-diagonal| Gram term (nonzero
+    Ḡ and ḡ_ld) through the port's autograd.Function against jax.grad through
+    the Pallas kernel's custom VJP and through the XLA path."""
+    cols = _cols(shape, seed=7 + sum(shape))
+    w_ld = np.random.default_rng(1).normal(size=shape[1]).astype(np.float32)
+    c_off = 0.3
+
+    jt = torch.as_tensor(cols).requires_grad_(True)
+    _loss_torch(*gl.fused_gram_logdet(jt), torch.as_tensor(w_ld), c_off).backward()
+
+    def f_kernel(c):
+        return _loss_jax(*jax_fused(c, True), w_ld, c_off)
+
+    def f_ref(c):
+        g = gram_from_columns(c)
+        return _loss_jax(g, cholesky_logdet(g)[0], w_ld, c_off)
+
+    for f in (f_kernel, f_ref):
+        want = np.asarray(jax.grad(f)(jnp.asarray(cols)))
+        np.testing.assert_allclose(jt.grad.numpy(), want, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_plain_bwd_formula_matches_jax_vjp():
+    """``gram_logdet_bwd_plain`` (the dJ formula the backward kernel
+    computes) against the Pallas VJP for arbitrary cotangents Ḡ, ḡ_ld."""
+    d, b, big_d = 4, 30, 9
+    rng = np.random.default_rng(3)
+    cols = rng.normal(size=(d, b, big_d)).astype(np.float32)
+    gbar = rng.normal(size=(b, d, d)).astype(np.float32)
+    ldbar = rng.normal(size=(b,)).astype(np.float32)
+    _, vjp = jax.vjp(lambda c: jax_fused(c, True), jnp.asarray(cols))
+    (want,) = vjp((jnp.asarray(gbar), jnp.asarray(ldbar)))
+    _, _, L = gl.gram_logdet_plain(torch.as_tensor(cols))
+    got = gl.gram_logdet_bwd_plain(torch.as_tensor(cols), L, torch.as_tensor(gbar), torch.as_tensor(ldbar))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_nan_on_rank_deficient():
+    """A rank-deficient Jacobian gives a non-finite log-det (no exception),
+    as the Pallas kernel does, so the caller's jitter fallback fires."""
+    base = _cols((2, 3, 8), seed=0)
+    cols = np.concatenate([base, base[:1], base[1:2]], axis=0)  # rank 2 < d=4
+    _, ld = gl.fused_gram_logdet(torch.as_tensor(cols))
+    _, ld_k = jax_fused(jnp.asarray(cols), True)
+    assert not np.all(np.isfinite(np.asarray(ld_k)))
+    assert not torch.isfinite(ld).all()
+
+
+def test_cpu_tensor_takes_plain_version_without_launch():
+    before = (gl.FWD_LAUNCHES, gl.BWD_LAUNCHES)
+    cols = torch.as_tensor(_cols((3, 6, 5), seed=1)).requires_grad_(True)
+    gram, ld = gl.fused_gram_logdet(cols)
+    (ld.sum() + gram.sum()).backward()
+    assert (gl.FWD_LAUNCHES, gl.BWD_LAUNCHES) == before
+    assert torch.isfinite(cols.grad).all()
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_cuda_wrappers_refuse_cpu_tensors(which):
+    """The kernel wrappers launch on a CUDA tensor or raise: never a quiet
+    fallback."""
+    cols = torch.zeros((3, 4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        if which == "fwd":
+            gl.gram_logdet_fwd_cuda(cols)
+        else:
+            gl.gram_logdet_bwd_cuda(cols, torch.zeros(4, 3, 3), torch.zeros(4, 3, 3), torch.zeros(4))
+
+
+def test_size_gate_is_the_jax_gate():
+    from cmf_tpu.ops.pallas import gram_logdet as jax_gl
+
+    assert (gl.MAX_D_LATENT, gl.MAX_D_AMBIENT) == (jax_gl._MAX_D_LATENT, jax_gl._MAX_D_AMBIENT)
+    assert gl.fused_gram_logdet_available(32, 128)
+    assert not gl.fused_gram_logdet_available(33, 43)
+    assert not gl.fused_gram_logdet_available(21, 129)

@@ -1,0 +1,152 @@
+"""The port's train loop against the JAX package: a 3-step loss and
+parameter trajectory against an optax Adam loop from the same start and
+batches, the objective flags, the loader's batches, and the CLI on the CPU."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from cmf_tpu.data.loaders import ArrayLoader as JaxArrayLoader
+from cmf_tpu.data.loaders import get_loaders as jax_get_loaders
+from cmf_tpu.training.objectives import get_objective as jax_get_objective
+from cmf_tpu_torch.data import ArrayLoader, get_loaders
+from cmf_tpu_torch.main import main
+from cmf_tpu_torch.interop import flatten_tree
+from cmf_tpu_torch.training import Trainer, check_supported, get_objective, make_optimizer
+
+from _torch_parity import (
+    batch,
+    build_pair,
+    small_config,
+    small_schema,
+    t,
+    to_numpy,
+    torch_grads,
+    torch_params,
+)
+
+LR = 1e-3  # large enough that three steps move every parameter
+
+
+def test_three_step_trajectory_matches_optax_adam():
+    """Step 1 is a warmup step (likelihood off: the latent prior gets zero
+    gradients, which Adam must still count), steps 2-3 have it on."""
+    jd, jv, td = build_pair(small_schema(), seed=8)
+    objective = get_objective(small_config())  # likelihood warmup 25 → 50
+    flags = [objective.for_epoch(1), objective.for_epoch(49), objective.for_epoch(60)]
+    assert [f["skip_likelihood"] for f in flags] == [True, False, False]
+    xs = [batch(16, seed=20 + i) for i in range(3)]
+
+    opt = optax.chain(optax.scale_by_adam(), optax.scale_by_learning_rate(LR))
+    params, opt_state = jv["params"], opt.init(jv["params"])
+    trainer = Trainer(td, objective, make_optimizer({"lr": LR}, td.parameters()), [], max_epochs=0)
+    losses_j, losses_t, rounding_only = [], [], {}
+    for x, f in zip(xs, flags):
+        def loss_fn(p, f=f, x=x):
+            info, _ = jd.elbo(
+                {"params": p, "state": jv["state"]}, jnp.asarray(x), train=True,
+                likelihood_wt=f["likelihood_wt"], metric_wt=f["metric_wt"],
+                add_reconstruction=f["add_reconstruction"],
+                add_diagonal_metric_reg=f["add_diagonal_metric_reg"],
+                add_offdiagonal_metric_reg=f["add_offdiagonal_metric_reg"],
+                skip_likelihood=bool(f["skip_likelihood"]),
+            )
+            return -jnp.mean(info["elbo"])
+
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        losses_j.append(float(loss))
+        losses_t.append(trainer.step(t(x), f)[0])
+        # Elements whose JAX gradient is exactly zero (a channel the decode
+        # zero-pads) where the port's is one rounding unit.
+        grads_t = torch_grads(td)
+        for k, g in flatten_tree(to_numpy(grads)).items():
+            rounding_only[k] = rounding_only.get(k, False) | ((g == 0) & (grads_t[k] != 0))
+
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-4)
+    # Adam moves an element by about LR whatever the size of its gradient,
+    # so a rounding-unit gradient may move an element by up to LR; every
+    # other element must follow the JAX trajectory closely.
+    got, want = torch_params(td), flatten_tree(to_numpy(params))
+    assert set(got) == set(want)
+    for k in want:
+        diff = np.abs(got[k] - want[k])
+        tight = diff <= 2e-5 + 1e-4 * np.abs(want[k])
+        assert np.all(tight | (rounding_only[k] & (diff <= 3 * LR))), k
+    assert sum(int(m.sum()) for m in rounding_only.values()) < 0.01 * sum(m.size for m in rounding_only.values())
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [{}, {"likelihood_warmup": False}, {"g_kk_loss": True}, {"g_ij_loss": True},
+     {"m_flow": True}, {"m_flow": True, "likelihood_warmup": False}],
+    ids=["default", "no-warmup", "g_kk", "g_ij", "m_flow", "m_flow-no-warmup"],
+)
+def test_objective_flags_match(overrides):
+    config = small_config(**overrides)
+    ours, theirs = get_objective(config), jax_get_objective(config)
+    assert ours.early_stopping_start_epoch == theirs.early_stopping_start_epoch
+    for epoch in range(1, 61):
+        assert ours.for_epoch(epoch) == theirs.for_epoch(epoch), epoch
+
+
+def test_loader_batches_match_array_loader():
+    x = np.random.default_rng(0).normal(size=(103, 4)).astype(np.float32)
+    ours = ArrayLoader(x, 10, "cpu", shuffle=True, drop_last=True, seed=3)
+    theirs = JaxArrayLoader(x, 10, shuffle=True, drop_last=True, seed=3)
+    for _ in range(2):  # two epochs: the shuffle follows (seed, epoch)
+        got = [b.numpy() for b in ours]
+        want = [np.asarray(b) for b in theirs]
+        assert len(got) == len(want) == 10
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_get_loaders_matches_with_dataset_cap():
+    config = {**small_config(), "max_dataset_size": 500}
+    ours = get_loaders("miniboone", config, "cpu", seed=2, synthetic=True)
+    theirs = jax_get_loaders("miniboone", config, seed=2, synthetic=True)
+    for o, w in zip(ours, theirs):
+        np.testing.assert_array_equal(o.x, w.x)
+        assert len(o) == len(w)
+    assert ours[0].num_examples == 500
+
+
+@pytest.mark.parametrize(
+    "key,value",
+    [("nosave", False), ("early_stopping", True), ("use_fid", True), ("m_flow", True),
+     ("lr_schedule", "cosine"), ("max_grad_norm", 1.0), ("opt", "adamax")],
+)
+def test_unported_config_raises(key, value):
+    config = {**small_config(), "nosave": True, "early_stopping": False, "use_fid": False}
+    check_supported(config)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        check_supported({**config, key: value})
+
+
+CLI_ARGS = [
+    "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
+    "--config", "likelihood_warmup=False", "--config", "max_epochs=2",
+    "--config", "max_dataset_size=120", "--config", "train_batch_size=40",
+    "--config", "num_density_layers=2", "--config", "coupler_hidden_channels=[16]",
+    "--config", "prior_num_density_layers=2", "--config", "prior_hidden_channels=[8]",
+    "--config", "latent_dimension=5", "--config", "seed=1",
+    "--config", "early_stopping=False", "--config", "use_fid=False",
+]
+
+
+def test_cli_trains_on_cpu():
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    launches = (gl.FWD_LAUNCHES, gl.BWD_LAUNCHES)
+    (setup,) = main(CLI_ARGS + ["--device", "cpu"])
+    history = setup["trainer"].history
+    assert len(history) == 6  # 2 epochs × 3 batches of 40
+    assert all(np.isfinite(h[1]) and not h[3] for h in history)
+    assert (gl.FWD_LAUNCHES, gl.BWD_LAUNCHES) == launches
+    assert all(p.device.type == "cpu" for p in setup["density"].parameters())
+    assert torch.backends.cuda.matmul.allow_tf32 is False

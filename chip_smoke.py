@@ -5,16 +5,25 @@
 
 Phases, each of which fails the run on its own failure:
 
-1. device   -- the card's name and power limit; TF32 off.
-2. build    -- nvcc builds ``cmf_tpu_torch/csrc/gram_logdet.cu`` for sm_90a.
-3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the main-path shape (d=21, B=400, D=43) and edge shapes; a
-               rank-deficient input must give a non-finite log-det; times of
-               the kernel, the plain version and a library yardstick.
-4. train    -- the port's CLI trains miniboone non-square at full width with
-               the likelihood on from step 1; the kernels' launch counts must
-               equal the likelihood steps; then one step on the card against
-               the same step on the CPU (plain path), loss and every gradient.
+1. device      -- the card's name and power limit; TF32 off.
+2. build       -- nvcc builds ``cmf_tpu_torch/csrc/*.cu`` for sm_90a, one
+                  process per source, all at once.
+3. kernels     -- each kernel against its plain PyTorch version on the card,
+                  at the main-path shapes and edge shapes; a rank-deficient
+                  input must give a non-finite log-det; times of the kernel,
+                  the plain version and a library yardstick, and the bound.
+4. train       -- the port's CLI trains miniboone non-square at full width
+                  with the likelihood on from step 1; the Gram/log-det
+                  kernels' launch counts must equal the likelihood steps; then
+                  one step on the card against the same step on the CPU.
+5. train-mnist -- the CLI trains the mnist non-square model (Hutchinson + CG)
+                  at full width for 10 steps; then one step on the card
+                  against the same step on the CPU, on the same weights,
+                  dequantization noise and Hutchinson probes.
+6. sample      -- ``sample(250)`` and ``fixed_sample()`` of the trained mnist
+                  model, which must launch the coupler kernel once per
+                  coupling inverse; the samples against the same noise decoded
+                  through the conv modules.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -38,6 +47,29 @@ BWD_TOL = 1e-3
 # each side summing in its own order.
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
+# Coupler kernel against its plain version: max |err| / max |ref|. Both are
+# fp32 with fp32 sums in another order (9·64 products a conv output, 17 convs
+# deep, then a tanh head); measured about 1e-5.
+COUPLER_TOL = 1e-4
+# Coupler shapes (B, C_in, C_out, H=W, hidden, blocks). Main path: the
+# checkerboard couplers at 28x28 and the split-channel / post-split
+# checkerboard couplers at 14x14, at the train batch (50) and the sampling
+# batch (250). The first one is the kernel's line in the JSON summary.
+COUPLER_MAIN = [(250, 1, 2, 28, 64, 8), (50, 1, 2, 28, 64, 8), (250, 2, 4, 14, 64, 8),
+                (50, 2, 4, 14, 64, 8)]
+COUPLER_EDGE = [(1, 1, 2, 28, 64, 8), (50, 1, 2, 28, 64, 1), (50, 2, 4, 14, 16, 8),
+                (3, 1, 2, 7, 16, 1)]
+# One mnist step on the card against the same step on the CPU, batch 8:
+# ten ResNet couplers of 17 convs, the Hutchinson surrogate through a JVP
+# and a VJP of the decode, and its second-order gradient, each side summing
+# in its own order.
+MNIST_LOSS_TOL = 1e-4
+MNIST_GRAD_TOL = 1e-3
+# Samples through the kernel against the same noise through the conv
+# modules: max |err| / max |ref|, data space [0, 256).
+SAMPLE_TOL = 1e-4
+MNIST_SAMPLE_BATCH = 250
+MNIST_COUPLINGS = 10
 # H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
@@ -49,6 +81,12 @@ TRAIN_ARGV = [
     # Validation / early stopping and FID wait for a later slice of the port,
     # which refuses a config that asks for them.
     "--config", "early_stopping=False", "--config", "use_fid=False",
+]
+TRAIN_MNIST_ARGV = [
+    "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--nosave",
+    "--config", "likelihood_warmup=False", "--config", "early_stopping=False",
+    "--config", "use_fid=False", "--config", "max_epochs=1",
+    "--config", "max_dataset_size=500", "--config", "seed=0",
 ]
 
 
@@ -118,16 +156,22 @@ def phase_device():
     return name, smi
 
 
+KERNEL_SOURCES = ["gram_logdet", "coupler_stack"]
+
+
 def phase_build():
     from cmf_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build(["gram_logdet"])
-    cuda_build.load_library("gram_logdet")
-    print(f"[build] gram_logdet.cu built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.BUILD_LOGS.get("gram_logdet", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"[build]   {line.strip()}")
+    cuda_build.build(KERNEL_SOURCES)
+    for name in KERNEL_SOURCES:
+        cuda_build.load_library(name)
+    print(f"[build] {', '.join(KERNEL_SOURCES)} built in parallel and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in KERNEL_SOURCES:
+        for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
+            if any(w in line for w in ("registers", "spill", "smem", "error")):
+                print(f"[build]   {name}: {line.strip()}")
 
 
 def phase_kernels():
@@ -249,13 +293,94 @@ def phase_kernels():
     return kernels
 
 
+def step_time(trainer, x, flags, n_steps, tag):
+    """Host-clock ms per training step, after one warm-up step."""
+    import torch
+
+    trainer.step(x, flags)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        trainer.step(x, flags)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    print(f"[{tag}] {step_ms:.4f} ms per step, {x.shape[0] / step_ms * 1e3:.1f} samples/s "
+          f"(batch {x.shape[0]}, {n_steps} steps, host clock)")
+    return step_ms
+
+
+def profile_steps(trainer, x, flags, n_steps, tag):
+    """Where a step's device time goes, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            trainer.step(x, flags)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Device-side events only (kernels, copies, fills): an aten op's own
+    # device time would count its kernels a second time, and so would the
+    # spans on the device timeline named after a host region (the
+    # optimizer's step and zero_grad), which overlap the kernels they hold.
+    averages = prof.key_averages()
+    host_keys = {e.key for e in averages if e.device_type == torch.autograd.DeviceType.CPU}
+    rows = sorted(
+        (
+            (getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)), e.key, e.count)
+            for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host_keys
+        ),
+        reverse=True,
+    )
+    busy = sum(r[0] for r in rows)
+    if busy:
+        print(f"[{tag}] profile of {n_steps} steps: {sum(r[2] for r in rows) // n_steps} device "
+              f"ops/step, busy {busy / n_steps / 1e3:.4f} ms/step of {wall_us / n_steps / 1e3:.4f} "
+              f"ms/step wall (idle share {1 - busy / wall_us:.3f})")
+        for dt, key, count in rows[:12]:
+            print(f"[{tag}]   {dt / n_steps / 1e3:9.4f} ms/step  x{count // n_steps:<4d} {key[:90]}")
+    else:
+        print(f"[{tag}] profile: no device time in the trace (not measured)")
+
+
+def card_vs_cpu(setup, x, flags, tag, loss_tol, grad_tol, **draws):
+    """One step's loss and every gradient on the card against the CPU (plain
+    path), same weights, batch and draws."""
+    import torch
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.training import elbo_loss
+
+    gpu = setup["density"]
+    cpu = get_density(setup["schema"], x_shape=tuple(x.shape[1:]), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    results = []
+    for model, dev in ((gpu, x.device), (cpu, torch.device("cpu"))):
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = elbo_loss(model, x.to(dev), flags, **{k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        results.append((loss.item(), grads, time.perf_counter() - t0))
+    (loss_g, grads_g, s_g), (loss_c, grads_c, s_c) = results
+    loss_err = abs(loss_g - loss_c) / max(1.0, abs(loss_c))
+    scale = max(float(g.abs().max()) for g in grads_c.values())
+    worst = max(grads_c, key=lambda n: float((grads_g[n] - grads_c[n]).abs().max()))
+    grad_err = float((grads_g[worst] - grads_c[worst]).abs().max()) / scale
+    print(f"[{tag}] card vs CPU step (batch {x.shape[0]}; {s_g:.2f} s card, {s_c:.2f} s CPU): "
+          f"loss {loss_g:.8g} vs {loss_c:.8g}, rel err {loss_err:.3e} (tol {loss_tol:g}); "
+          f"max grad err / max |grad| {grad_err:.3e} (tol {grad_tol:g}) over {len(grads_c)} "
+          f"tensors, worst `{worst}'")
+    assert loss_err <= loss_tol, f"{tag}: loss on the card disagrees with the CPU step"
+    assert grad_err <= grad_tol, f"{tag}: gradients on the card disagree with the CPU step"
+
+
 def phase_train():
     import torch
     from cmf_tpu_torch.densities import nonsquare
     from cmf_tpu_torch.main import main as cli_main
-    from cmf_tpu_torch.models import get_density
     from cmf_tpu_torch.ops import gram_logdet as gl
-    from cmf_tpu_torch.training import elbo_loss
 
     gl.reset_launch_counts()
     nonsquare.LOGDET_FALLBACKS = 0
@@ -278,75 +403,171 @@ def phase_train():
     assert counts["FWD_LAUNCHES"] == lik_steps, "forward kernel launches != likelihood steps"
     assert counts["BWD_LAUNCHES"] == lik_steps, "backward kernel launches != likelihood steps"
 
-    # Step time at full width, after warm-up.
     flags = trainer.objective.for_epoch(trainer.epoch)
     x = next(iter(trainer.train_loader))
-    n_steps = 20
-    trainer.step(x, flags)
+    step_time(trainer, x, flags, 20, "train")
+    profile_steps(trainer, x, flags, 5, "train")
+    card_vs_cpu(setup, x, flags, "train", STEP_LOSS_TOL, STEP_GRAD_TOL)
+    return counts
+
+
+def random_coupler(b, c_in, c_out, hw, hidden, blocks, gen):
+    """The port's ResNet coupler on the card with random weights (the head's
+    ones and zeros perturbed too) and a random input."""
+    import torch
+    from cmf_tpu_torch.nets import ResNet
+
+    net = ResNet(c_in, [hidden] * blocks, c_out, generator=gen).cuda()
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).cuda())
+    x = torch.randn((b, c_in, hw, hw), generator=gen).cuda()
+    return net, x
+
+
+def phase_coupler_kernel():
+    """The coupler kernel against its plain version, the library yardstick
+    (the port's ResNet module through F.conv2d, cuDNN, TF32 off) and the
+    bound, at the main-path and edge shapes."""
+    import torch
+    from cmf_tpu_torch.ops import coupler_stack as cs
+
+    gen = torch.Generator().manual_seed(0)
+    summary = None
+    for shape in COUPLER_MAIN + COUPLER_EDGE:
+        b, c_in, c_out, hw, hidden, blocks = shape
+        net, x = random_coupler(*shape, gen)
+        with torch.no_grad():
+            params = net.kernel_params()
+            got = cs.coupler_stack_cuda(x, params)
+            ref = cs.coupler_stack_plain(x, params)
+            torch.cuda.synchronize()
+            abs_err = float((got - ref).abs().max())
+            err = abs_err / float(ref.abs().max())
+            ok = err <= COUPLER_TOL and bool(torch.isfinite(got).all())
+            tag = "main" if shape in COUPLER_MAIN else "edge"
+            print(f"[kernels] coupler_stack {tag} B={b} {c_in}->{c_out} {hw}x{hw} hidden {hidden} "
+                  f"blocks {blocks}: max err / max |ref| {err:.3e} (tol {COUPLER_TOL:g}), abs {abs_err:.3e}")
+            assert ok, f"coupler kernel disagrees with its plain version at {shape}"
+            if tag == "edge":
+                continue
+            iters = 20 if b * hw * hw > 50 * 14 * 14 else 50
+            ms = cuda_ms(lambda: cs.coupler_stack_cuda(x, params), iters=iters, warmup=3)
+            device_ms = profiled_device_ms(lambda: cs.coupler_stack_cuda(x, params),
+                                           "coupler_stack_kernel", iters=10)
+            plain_ms = cuda_ms(lambda: cs.coupler_stack_plain(x, params), iters=5, warmup=1)
+            library_ms = cuda_ms(lambda: net(x), iters=iters, warmup=3)
+        n_weights = sum(p.numel() for p in net.parameters())
+        n_bytes = 4 * (x.numel() + n_weights + got.numel())
+        n_flops = cs.flops(b, c_in, hidden, c_out, blocks, hw, hw)
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
+        print(f"[kernels] coupler_stack B={b} {c_in}->{c_out} {hw}x{hw}: {ms:.6f} ms per call back to "
+              f"back, kernel device time {dev_txt}, plain {plain_ms:.6f} ms, library (cuDNN module) "
+              f"{library_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}: {n_bytes} B, {n_flops:.6g} FLOP)")
+        if summary is None:
+            summary = {
+                "name": "coupler_stack", "route": "cuda", "source": "cmf_tpu_torch/csrc/coupler_stack.cu",
+                "replaces": "cmf_tpu/ops/pallas/coupler_stack.py:124", "launches": None,
+                "_launches_key": "COUPLER_LAUNCHES", "shape": list(shape), "max_abs_err": abs_err,
+                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            }
+    return summary
+
+
+def mnist_head(density):
+    from cmf_tpu_torch.densities import NonSquareHeadDensity
+
+    return next(m for m in density.modules() if isinstance(m, NonSquareHeadDensity))
+
+
+def phase_train_mnist():
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import coupler_stack as cs
+
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    (setup,) = cli_main(TRAIN_MNIST_ARGV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer = setup["trainer"]
+    losses = [h[1] for h in trainer.history]
+    lik_steps = sum(1 for h in trainer.history if not h[3])
+    print(f"[train-mnist] {len(losses)} steps in {train_s:.2f} s (set-up and warm-up included); "
+          f"losses {losses[0]:.6g} -> {losses[-1]:.6g}; coupler kernel launches {cs.LAUNCHES}")
+    assert all(torch.isfinite(torch.tensor(losses))), "non-finite mnist training loss"
+    assert lik_steps == len(losses) == 10, "expected 10 likelihood steps"
+    assert cs.LAUNCHES == 0, "a training step went through the forward-only coupler kernel"
+
+    flags = trainer.objective.for_epoch(trainer.epoch)
+    x = next(iter(trainer.train_loader))
+    step_time(trainer, x, flags, 5, "train-mnist")
+    profile_steps(trainer, x, flags, 3, "train-mnist")
+    head = mnist_head(setup["density"])
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    xb = x[:8]
+    noise = torch.rand(xb.shape, generator=gen, device=x.device)
+    eps = torch.randn((xb.shape[0], head.latent_dimension, head.num_hutchinson_samples),
+                      generator=gen, device=x.device)
+    card_vs_cpu(setup, xb, flags, "train-mnist", MNIST_LOSS_TOL, MNIST_GRAD_TOL,
+                dequantization_noise=noise, hutchinson_eps=eps)
+    return setup
+
+
+def phase_sample(setup):
+    import torch
+    from cmf_tpu_torch.ops import coupler_stack as cs
+
+    density = setup["density"]
+    dev = setup["device"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x_shape = tuple(setup["train_loader"].x_shape)
+
+    # The main path: the counts are read right after it.
+    cs.reset_launch_counts()
+    samples = density.sample(MNIST_SAMPLE_BATCH, generator=gen)
+    after_sample = cs.LAUNCHES
+    fixed = density.fixed_sample()
+    torch.cuda.synchronize()
+    launches = cs.LAUNCHES
+    print(f"[sample] sample({MNIST_SAMPLE_BATCH}) {tuple(samples.shape)}, fixed_sample() "
+          f"{tuple(fixed.shape)}; coupler kernel launches {after_sample} + {launches - after_sample}")
+    assert after_sample == MNIST_COUPLINGS, "sample(): coupler launches != couplings"
+    assert launches - after_sample == MNIST_COUPLINGS, "fixed_sample(): coupler launches != couplings"
+    assert tuple(samples.shape) == (MNIST_SAMPLE_BATCH, *x_shape)
+    assert tuple(fixed.shape[1:]) == x_shape
+    assert bool(torch.isfinite(samples).all()) and bool(torch.isfinite(fixed).all()), "non-finite samples"
+
+    # The same noise through the kernel and through the conv modules.
+    latent = mnist_head(density).latent_dimension
+    noise = torch.randn((MNIST_SAMPLE_BATCH, latent), generator=gen, device=dev)
+    got = density.fixed_sample(noise)
+    with torch.no_grad():
+        ref = density._fixed_sample(noise)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"[sample] kernel route vs conv route, same noise: max err / max |ref| {err:.3e} "
+          f"(tol {SAMPLE_TOL:g}); samples in [{float(ref.min()):.4g}, {float(ref.max()):.4g}]")
+    assert err <= SAMPLE_TOL, "samples through the coupler kernel disagree with the conv route"
+
+    n_calls = 5
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_steps):
-        trainer.step(x, flags)
+    for _ in range(n_calls):
+        density.sample(MNIST_SAMPLE_BATCH, generator=gen)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    print(f"[train] {step_ms:.4f} ms per step, {x.shape[0] / step_ms * 1e3:.1f} samples/s "
-          f"(batch {x.shape[0]}, {n_steps} steps, host clock)")
-
-    # Where a step's device time goes.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            trainer.step(x, flags)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # Device-side events only (kernels, copies, fills): an aten op's own
-    # device time would count its kernels a second time, and so would the
-    # spans on the device timeline named after a host region (the
-    # optimizer's step and zero_grad), which overlap the kernels they hold.
-    averages = prof.key_averages()
-    host_keys = {e.key for e in averages if e.device_type == torch.autograd.DeviceType.CPU}
-    rows = sorted(
-        (
-            (getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)), e.key, e.count)
-            for e in averages
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host_keys
-        ),
-        reverse=True,
-    )
-    busy = sum(r[0] for r in rows)
-    if busy:
-        print(f"[train] profile of 5 steps: {sum(r[2] for r in rows) // 5} device ops/step, busy "
-              f"{busy / 5 / 1e3:.4f} ms/step of {wall_us / 5 / 1e3:.4f} ms/step wall "
-              f"(idle share {1 - busy / wall_us:.3f})")
-        for dt, key, count in rows[:12]:
-            print(f"[train]   {dt / 5 / 1e3:9.4f} ms/step  x{count // 5:<4d} {key[:90]}")
-    else:
-        print("[train] profile: no device time in the trace (not measured)")
-
-    # One step on the card against the same step on the CPU, same weights
-    # and batch.
-    gpu = trainer.density
-    cpu = get_density(setup["schema"], x_shape=tuple(x.shape[1:]), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-    results = []
-    for model, xb in ((gpu, x), (cpu, x.cpu())):
-        model.zero_grad(set_to_none=True)
-        loss = elbo_loss(model, xb, flags)
-        loss.backward()
-        results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
-    (loss_g, grads_g), (loss_c, grads_c) = results
-    loss_err = abs(loss_g - loss_c) / max(1.0, abs(loss_c))
-    scale = max(float(g.abs().max()) for g in grads_c.values())
-    worst = max(grads_c, key=lambda n: float((grads_g[n] - grads_c[n]).abs().max()))
-    grad_err = float((grads_g[worst] - grads_c[worst]).abs().max()) / scale
-    print(f"[train] card vs CPU step: loss {loss_g:.8g} vs {loss_c:.8g}, rel err {loss_err:.3e} "
-          f"(tol {STEP_LOSS_TOL:g}); max grad err / max |grad| {grad_err:.3e} (tol {STEP_GRAD_TOL:g}) "
-          f"over {len(grads_c)} tensors, worst `{worst}'")
-    assert loss_err <= STEP_LOSS_TOL, "loss on the card disagrees with the CPU step"
-    assert grad_err <= STEP_GRAD_TOL, "gradients on the card disagree with the CPU step"
-    return counts
+    kernel_ms = (time.perf_counter() - t0) / n_calls * 1e3
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(n_calls):
+            density._sample(MNIST_SAMPLE_BATCH, generator=gen)
+    torch.cuda.synchronize()
+    conv_ms = (time.perf_counter() - t0) / n_calls * 1e3
+    print(f"[sample] sample({MNIST_SAMPLE_BATCH}): {kernel_ms:.4f} ms per call through the kernel, "
+          f"{conv_ms:.4f} ms through the conv modules (host clock, {n_calls} calls each)")
+    return {"COUPLER_LAUNCHES": launches}
 
 
 def main():
@@ -357,10 +578,13 @@ def main():
         return 1
     name, smi = phase_device()
     phase_build()
-    kernels = phase_kernels()
+    kernels = phase_kernels() + [phase_coupler_kernel()]
     counts = phase_train()
+    setup = phase_train_mnist()
+    counts.update(phase_sample(setup))
     for k in kernels:
         k["launches"] = counts[k.pop("_launches_key")]
+        assert k["launches"] > 0, f"{k['name']} was never launched on its path"
     print(json.dumps({"kernels": kernels}))
     print(f"{smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,27 @@
 from .base import Bijection
-from .coupling import AlternatingChannelwiseCouplingBijection
-from .reshaping import FlipBijection, RandomChannelwisePermutationBijection, ViewBijection
+from .coupling import (
+    AlternatingChannelwiseCouplingBijection,
+    Checkerboard2dCouplingBijection,
+    SplitChannelwiseCouplingBijection,
+)
+from .elementwise import LogitBijection, ScalarAdditionBijection, ScalarMultiplicationBijection
+from .reshaping import (
+    FlipBijection,
+    RandomChannelwisePermutationBijection,
+    Squeeze2dBijection,
+    ViewBijection,
+)
 
 __all__ = [
     "Bijection",
     "AlternatingChannelwiseCouplingBijection",
+    "Checkerboard2dCouplingBijection",
+    "SplitChannelwiseCouplingBijection",
+    "LogitBijection",
+    "ScalarAdditionBijection",
+    "ScalarMultiplicationBijection",
     "FlipBijection",
     "RandomChannelwisePermutationBijection",
+    "Squeeze2dBijection",
     "ViewBijection",
 ]

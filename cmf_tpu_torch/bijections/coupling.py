@@ -2,8 +2,9 @@
 
 Transform convention (reference acl.py:43-46): on the modified half,
 z = (x + t)·exp(s); inverse x = z·exp(−s) − t. Log-jac is Σ s over the
-modified elements. This slice carries the alternating-channel mask, the only
-one the flat tabular schemas use.
+modified elements. Three masks: alternating-channel (the flat tabular
+schemas), and the checkerboard and split-channel masks of the multiscale
+image schemas.
 """
 
 import numpy as np
@@ -35,6 +36,74 @@ class AlternatingChannelwiseCouplingBijection(Bijection):
 
     def _combine(self, passthrough, modified):
         return torch.cat([passthrough, modified], dim=1)[:, self.inv_perm]
+
+    def forward(self, x):
+        passthrough, modified = self._split(x)
+        shift, log_scale = self.coupler(passthrough)
+        z = self._combine(passthrough, (modified + shift) * torch.exp(log_scale))
+        return z, log_scale.reshape(x.shape[0], -1).sum(dim=1)
+
+    def inverse(self, z):
+        passthrough, modified = self._split(z)
+        shift, log_scale = self.coupler(passthrough)
+        x = self._combine(passthrough, modified * torch.exp(-log_scale) - shift)
+        return x, -log_scale.reshape(z.shape[0], -1).sum(dim=1)
+
+
+class Checkerboard2dCouplingBijection(Bijection):
+    """Spatial checkerboard mask over NCHW images (acl.py:29-78): mask 1
+    passes through. The coupler sees ``mask·x`` with every channel and
+    returns a shift and log-scale for every element."""
+
+    def __init__(self, x_shape, coupler, reverse_mask):
+        super().__init__(x_shape=x_shape, z_shape=x_shape)
+        assert len(x_shape) == 3
+        _, h, w = x_shape
+        ii, jj = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        mask = ((ii + jj) % 2 == 1).astype(np.float32)
+        if reverse_mask:
+            mask = 1.0 - mask
+        self.coupler = coupler
+        self.reverse_mask = reverse_mask
+        self.register_buffer("mask", torch.as_tensor(mask)[None, None], persistent=False)
+
+    def forward(self, x):
+        m = self.mask
+        shift, log_scale = self.coupler(m * x)
+        z = m * x + (1 - m) * ((x + shift) * torch.exp(log_scale))
+        return z, ((1 - m) * log_scale).reshape(x.shape[0], -1).sum(dim=1)
+
+    def inverse(self, z):
+        m = self.mask
+        shift, log_scale = self.coupler(m * z)
+        x = m * z + (1 - m) * (z * torch.exp(-log_scale) - shift)
+        return x, -((1 - m) * log_scale).reshape(z.shape[0], -1).sum(dim=1)
+
+
+class SplitChannelwiseCouplingBijection(Bijection):
+    """The first half of the channels passes through, the last half when
+    ``reverse_mask`` (acl.py:169-189); an odd count gives the larger part to
+    the reversed passthrough."""
+
+    def __init__(self, x_shape, coupler_factory, reverse_mask):
+        super().__init__(x_shape=x_shape, z_shape=x_shape)
+        num_channels = x_shape[0]
+        num_passthrough = num_channels // 2
+        if reverse_mask:
+            num_passthrough = num_channels - num_passthrough
+        assert num_passthrough > 0, "Not a bijection without passthrough"
+        self.coupler = coupler_factory(num_passthrough)
+        self.num_passthrough = num_passthrough
+        self.reverse_mask = reverse_mask
+
+    def _split(self, x):
+        cut = x.shape[1] - self.num_passthrough if self.reverse_mask else self.num_passthrough
+        first, second = x[:, :cut], x[:, cut:]
+        return (second, first) if self.reverse_mask else (first, second)
+
+    def _combine(self, passthrough, modified):
+        parts = (modified, passthrough) if self.reverse_mask else (passthrough, modified)
+        return torch.cat(parts, dim=1)
 
     def forward(self, x):
         passthrough, modified = self._split(x)

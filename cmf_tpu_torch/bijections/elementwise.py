@@ -1,0 +1,69 @@
+"""Elementwise bijections of the image preprocessing: logit and the scalar
+multiply / add (``cmf_tpu/bijections/elementwise.py:16-91`` in torch).
+
+As in the JAX package, the inverse log-jacobian is evaluated at the
+reconstructed domain point, not at the codomain argument.
+"""
+
+import numpy as np
+import torch
+
+from .base import Bijection
+
+
+class _ElementwiseBijection(Bijection):
+    def __init__(self, x_shape):
+        super().__init__(x_shape=x_shape, z_shape=x_shape)
+
+    def forward(self, x):
+        return self._f(x), self._log_df(x).reshape(x.shape[0], -1).sum(dim=1)
+
+    def inverse(self, z):
+        x = self._f_inv(z)
+        return x, -self._log_df(x).reshape(x.shape[0], -1).sum(dim=1)
+
+
+class LogitBijection(_ElementwiseBijection):
+    _EPS = 1e-7
+
+    def _f(self, x):
+        return torch.log(x) - torch.log1p(-x)
+
+    def _f_inv(self, z):
+        return torch.sigmoid(z)
+
+    def _log_df(self, x):
+        xc = torch.clamp(x, self._EPS, 1 - self._EPS)
+        return -torch.log(xc) - torch.log1p(-xc)
+
+
+class ScalarMultiplicationBijection(_ElementwiseBijection):
+    def __init__(self, x_shape, value):
+        assert np.isscalar(value) and value != 0.0
+        super().__init__(x_shape=x_shape)
+        self.value = float(value)
+
+    def _f(self, x):
+        return self.value * x
+
+    def _f_inv(self, z):
+        return z / self.value
+
+    def _log_df(self, x):
+        return torch.full_like(x, float(np.log(abs(self.value))))
+
+
+class ScalarAdditionBijection(_ElementwiseBijection):
+    def __init__(self, x_shape, value):
+        assert np.isscalar(value)
+        super().__init__(x_shape=x_shape)
+        self.value = float(value)
+
+    def _f(self, x):
+        return x + self.value
+
+    def _f_inv(self, z):
+        return z - self.value
+
+    def _log_df(self, x):
+        return torch.zeros_like(x)

@@ -1,6 +1,7 @@
 """Volume-preserving reshaping bijections
-(``cmf_tpu/bijections/reshaping.py`` in torch): the flatten view, and the
-flat channel flip and permutation that the dense decode program steps over."""
+(``cmf_tpu/bijections/reshaping.py`` in torch): the flatten view, the flat
+channel flip and permutation that the dense decode program steps over, and
+the image squeeze."""
 
 import numpy as np
 import torch
@@ -51,3 +52,29 @@ class ViewBijection(Bijection):
 
     def inverse(self, z):
         return z.reshape(z.shape[0], *self.x_shape), z.new_zeros(z.shape[0])
+
+
+class Squeeze2dBijection(Bijection):
+    """Glow space-to-depth squeeze (reshaping.py:77-104): (C, H, W) →
+    (C·f², H/f, W/f) with the (c, fh, fw) channel ordering."""
+
+    def __init__(self, x_shape, factor):
+        assert len(x_shape) == 3
+        c, h, w = x_shape
+        assert h % factor == 0 and w % factor == 0
+        super().__init__(x_shape=x_shape, z_shape=(c * factor**2, h // factor, w // factor))
+        self.factor = factor
+
+    def forward(self, x):
+        b = x.shape[0]
+        c, h, w = self.x_shape
+        f = self.factor
+        z = x.reshape(b, c, h // f, f, w // f, f).permute(0, 1, 3, 5, 2, 4)
+        return z.reshape(b, *self.z_shape), x.new_zeros(b)
+
+    def inverse(self, z):
+        b = z.shape[0]
+        zc, zh, zw = self.z_shape
+        f = self.factor
+        x = z.reshape(b, zc // f**2, f, f, zh, zw).permute(0, 1, 4, 2, 5, 3)
+        return x.reshape(b, *self.x_shape), z.new_zeros(b)

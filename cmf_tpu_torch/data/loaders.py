@@ -9,6 +9,7 @@ the last partial batch.
 import numpy as np
 import torch
 
+from .image import DATASET_SHAPES as IMAGE_SHAPES, get_image_datasets
 from .tabular import DATASET_SHAPES as TABULAR_SHAPES, get_tabular_datasets
 
 
@@ -57,15 +58,19 @@ class ArrayLoader:
 
 
 def get_loaders(dataset, config, device, seed=0, synthetic=None, data_root=None):
-    """name → (train_loader, valid_loader, test_loader). Tabular only in
-    this slice of the port."""
-    if dataset not in TABULAR_SHAPES:
-        raise NotImplementedError(
-            f"dataset `{dataset}' waits for a later slice of the port (tabular only)"
+    """name → (train_loader, valid_loader, test_loader): tabular and image
+    datasets; images are cast from uint8 to float32 (loaders.py:142-148)."""
+    if dataset in TABULAR_SHAPES:
+        train_x, valid_x, test_x = get_tabular_datasets(
+            dataset, data_root=data_root, synthetic=synthetic, seed=seed
         )
-    train_x, valid_x, test_x = get_tabular_datasets(
-        dataset, data_root=data_root, synthetic=synthetic, seed=seed
-    )
+    elif dataset in IMAGE_SHAPES:
+        (train_x, _), (valid_x, _), (test_x, _) = get_image_datasets(
+            dataset, data_root=data_root, synthetic=synthetic, seed=seed
+        )
+        train_x, valid_x, test_x = (a.astype(np.float32) for a in (train_x, valid_x, test_x))
+    else:
+        raise NotImplementedError(f"dataset `{dataset}' waits for a later slice of the port")
     # Optional split truncation (loaders.py:152-159): caps every split so
     # short runs control steps-per-epoch explicitly.
     max_size = config.get("max_dataset_size")

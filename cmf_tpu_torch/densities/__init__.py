@@ -2,12 +2,16 @@ from .base import Density
 from .exact import BijectionDensity
 from .gaussian import DiagonalGaussianDensity, diagonal_gaussian_log_prob
 from .nonsquare import NonSquareHeadDensity, NonSquareTailDensity
+from .split import SplitDensity
+from .wrapper import DequantizationDensity
 
 __all__ = [
     "Density",
     "BijectionDensity",
+    "DequantizationDensity",
     "DiagonalGaussianDensity",
     "diagonal_gaussian_log_prob",
     "NonSquareHeadDensity",
     "NonSquareTailDensity",
+    "SplitDensity",
 ]

@@ -10,13 +10,33 @@ same keys as the JAX package's ``{"params", "state"}`` trees, so
   from the tail.
 * ``decode(u) -> x`` — the injective decoder g: ℝᵈ→ℝᴰ of the non-square
   chain.
+* ``sample(n, generator=None)`` and ``fixed_sample(noise=None)`` run under
+  ``torch.inference_mode()``, which routes every ResNet coupler through the
+  fused coupler-stack kernel (``nets/core.py``). ``_sample`` /
+  ``_fixed_sample`` are the same functions in whatever mode the caller is
+  in: under ``torch.no_grad()`` they take the conv modules instead.
 """
 
+import torch
 from torch import nn
 
 
 class Density(nn.Module):
     def elbo(self, x, **kw):
+        raise NotImplementedError
+
+    def sample(self, num_samples, generator=None):
+        with torch.inference_mode():
+            return self._sample(num_samples, generator)
+
+    def fixed_sample(self, noise=None):
+        with torch.inference_mode():
+            return self._fixed_sample(noise)
+
+    def _sample(self, num_samples, generator=None):
+        raise NotImplementedError
+
+    def _fixed_sample(self, noise=None):
         raise NotImplementedError
 
     def decode(self, u):

@@ -3,7 +3,8 @@
 
 elbo(x) = prior_elbo(bij(x)) + log|det ∂z/∂x|; the non-square chain keys
 ("low_dim_x", "low_dim_elbo") bubble up from the prior, and ``decode`` is
-``bij⁻¹ ∘ prior.decode``.
+``bij⁻¹ ∘ prior.decode``. Sampling maps the prior's samples back through the
+inverse (exact.py:36-47).
 """
 
 from .base import Density
@@ -28,3 +29,11 @@ class BijectionDensity(Density):
 
     def decode(self, u):
         return self.bijection.inverse_point(self.prior.decode(u))
+
+    def _sample(self, num_samples, generator=None):
+        x, _ = self.bijection.inverse(self.prior._sample(num_samples, generator))
+        return x
+
+    def _fixed_sample(self, noise=None):
+        x, _ = self.bijection.inverse(self.prior._fixed_sample(noise))
+        return x

@@ -35,3 +35,17 @@ class DiagonalGaussianDensity(Density):
         mean = torch.zeros_like(x)
         std = torch.ones_like(x)
         return {"elbo": diagonal_gaussian_log_prob(x, mean, std), "z": x}
+
+    def _sample(self, num_samples, generator=None):
+        """Standard normal draws (gaussian.py:72-73), on the generator's
+        device, else the fixed samples' device."""
+        if generator is not None:
+            device = generator.device
+        elif self.num_fixed_samples > 0:
+            device = self.fixed_samples.device
+        else:
+            device = None
+        return torch.randn((num_samples, *self.shape), generator=generator, device=device)
+
+    def _fixed_sample(self, noise=None):
+        return noise if noise is not None else self.fixed_samples

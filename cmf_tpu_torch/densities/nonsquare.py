@@ -1,27 +1,42 @@
-"""Non-square (injective) flow engine, exact log-det path
-(``cmf_tpu/densities/nonsquare.py`` in torch).
+"""Non-square (injective) flow engine (``cmf_tpu/densities/nonsquare.py`` in
+torch).
 
-* The decoder's d Jacobian columns come from the dense augmented-batch
-  program (ops/decode_jac.py) over the flat chain.
-* Inside the kernels' size gate (d ≤ 32, D ≤ 128) the fused Gram + Cholesky +
-  log-det (ops/gram_logdet.py) gives G and log|G|; outside it, the plain Gram
-  and the jittered Cholesky (ops/chol.py), as cmf_tpu routes them.
-* CMF metric regularisers (non_square.py:87-99): L1 of diag(JᵀJ) (g_kk) and
-  of its off-diagonal entries (g_ij).
+* Exact path (``log_jacobian_method="cholesky"``, and every ``train=False``
+  elbo): the decoder's d Jacobian columns come from the dense augmented-batch
+  program (ops/decode_jac.py) where it covers the chain (flat chains), else
+  from ``torch.func.jvp`` of the flat decode under ``torch.func.vmap`` over
+  the d basis tangents (nonsquare.py:225-228). Inside the kernels' size gate
+  (d ≤ 32, D ≤ 128) the fused Gram + Cholesky + log-det
+  (ops/gram_logdet.py) gives G and log|G|; outside it, the plain Gram and the
+  jittered Cholesky (ops/chol.py), as cmf_tpu routes them.
+* Stochastic path (``"hutch_with_cg"`` with ``train=True``,
+  nonsquare.py:302-392): Hutchinson probes ε (B, d, S), a detached CG solve
+  of (JᵀJ)⁻¹ε, and the surrogate mean_S Σ_d sg[(JᵀJ)⁻¹ε] ⊙ (JᵀJε) whose
+  gradient is that of log|JᵀJ|. JᵀJv is a JVP of the flat decode and then a
+  VJP (``torch.func.jvp`` / ``torch.func.vjp``); the gradient flows through
+  JᵀJε into the decoder's parameters, a second-order gradient.
+* CMF metric regularisers (non_square.py:87-99): L1 of diag(JᵀJ) (g_kk,
+  Hutchinson-estimated on the stochastic path) and of its off-diagonal
+  entries (g_ij, exact path only).
 
-Waiting for later slices, and raising when asked for: the Hutchinson + CG
-log-det (``log_jacobian_method="hutch_with_cg"``) and the generic
-(non-dense) Jacobian for chains the dense program does not cover.
+Waiting for a later slice, and raising when asked for: the exact-Gram
+Hutchinson solver (``hutchinson_solver="gram"``, which ``"auto"`` picks on
+flat chains) and ``spd_solve``.
 """
 
 import torch
 
 from .base import Density
+from ..ops.cg import batched_cg
 from ..ops.chol import cholesky_logdet
 from ..ops.gram import gram_from_columns
 from ..ops.gram_logdet import fused_gram_logdet, fused_gram_logdet_available
 
 _VALID_METHODS = ("cholesky", "hutch_with_cg")
+_VALID_SOLVERS = ("auto", "gram", "cg")
+# 'auto' takes the exact-Gram solver on flat chains up to this d
+# (nonsquare.py:63).
+_GRAM_SOLVER_MAX_D = 64
 
 # Steps whose fused log-det was not all finite and was recomputed with the
 # jittered Cholesky on the kernel's Gram. Read by chip_smoke.py.
@@ -29,28 +44,55 @@ LOGDET_FALLBACKS = 0
 
 
 class NonSquareHeadDensity(Density):
-    def __init__(self, prior, regularization_param, log_jacobian_method, x_shape, latent_dimension=None):
+    def __init__(
+        self,
+        prior,
+        regularization_param,
+        log_jacobian_method,
+        x_shape,
+        hutchinson_distribution="normal",
+        num_hutchinson_samples=1,
+        max_cg_iterations=None,
+        cg_tolerance=1.0,
+        latent_dimension=None,
+        hutchinson_solver="auto",
+    ):
         super().__init__()
         if log_jacobian_method not in _VALID_METHODS:
             raise ValueError(f"{log_jacobian_method} not a valid Jacobian calculation method")
-        if log_jacobian_method == "hutch_with_cg":
-            raise NotImplementedError(
-                "log_jacobian_method='hutch_with_cg' (Hutchinson + CG) waits for a "
-                "later slice of the port; use 'cholesky'"
-            )
+        if hutchinson_solver not in _VALID_SOLVERS:
+            raise ValueError(f"{hutchinson_solver} not a valid hutchinson solver")
         self.prior = prior
         self.regularization_param = regularization_param
         self.log_jacobian_method = log_jacobian_method
         self.x_shape = tuple(x_shape)
+        self.hutchinson_distribution = hutchinson_distribution
+        self.num_hutchinson_samples = num_hutchinson_samples
+        self.max_cg_iterations = max_cg_iterations
+        self.cg_tolerance = cg_tolerance
         self.latent_dimension = latent_dimension
+        self.hutchinson_solver = hutchinson_solver
         self._program = None
+        self._program_checked = False
 
     def decode(self, u):
         return self.prior.decode(u)
 
+    def _decode_flat(self, u):
+        return self.prior.decode(u).reshape(u.shape[0], -1)
+
+    def _sample(self, num_samples, generator=None):
+        return self.prior._sample(num_samples, generator)
+
+    def _fixed_sample(self, noise=None):
+        return self.prior._fixed_sample(noise)
+
     def elbo(
         self,
         x,
+        train=False,
+        generator=None,
+        hutchinson_eps=None,
         likelihood_wt=1.0,
         metric_wt=1.0,
         add_reconstruction=True,
@@ -58,6 +100,8 @@ class NonSquareHeadDensity(Density):
         add_offdiagonal_metric_reg=False,
         skip_likelihood=False,
     ):
+        """``generator`` draws the Hutchinson probes ε (B, d, S) unless the
+        caller passes them as ``hutchinson_eps``."""
         prior_info = self.prior.elbo(x)
         z = prior_info["low_dim_x"]                 # (B, d)
         low_dim_elbo = prior_info["low_dim_elbo"]   # (B,)
@@ -66,18 +110,27 @@ class NonSquareHeadDensity(Density):
 
         metric_l1 = 0.0
         if not skip_likelihood:
-            log_det, recon_flat, gram = self._exact_log_det(z)
-            if add_diagonal_metric_reg:
-                metric_l1 = torch.diagonal(gram, dim1=-2, dim2=-1).abs().sum(dim=1)
-            elif add_offdiagonal_metric_reg:
-                d = gram.shape[-1]
-                off = gram * (1.0 - torch.eye(d, dtype=gram.dtype, device=gram.device))
-                metric_l1 = off.abs().sum(dim=(1, 2))
+            if not train or self.log_jacobian_method == "cholesky":
+                log_det, recon_flat, gram = self._exact_log_det(z)
+                if add_diagonal_metric_reg:
+                    metric_l1 = torch.diagonal(gram, dim1=-2, dim2=-1).abs().sum(dim=1)
+                elif add_offdiagonal_metric_reg:
+                    d = gram.shape[-1]
+                    off = gram * (1.0 - torch.eye(d, dtype=gram.dtype, device=gram.device))
+                    metric_l1 = off.abs().sum(dim=(1, 2))
+            else:
+                assert not add_offdiagonal_metric_reg, (
+                    "g_ij regularisation needs the exact Gram: use "
+                    "log_jacobian_method='cholesky'"
+                )
+                log_det, recon_flat, diag_est = self._approx_log_det(z, generator, hutchinson_eps)
+                if add_diagonal_metric_reg:
+                    metric_l1 = diag_est.abs().sum(dim=1)
             likelihood_term = low_dim_elbo - log_det / 2.0
         else:
             # Warmup fast path (non_square.py:105-109): no log-det at all.
             likelihood_term = 0.0
-            recon_flat = self.prior.decode(z).reshape(batch, -1)
+            recon_flat = self._decode_flat(z)
 
         recon_loss = ((recon_flat - x_flat) ** 2).sum(dim=-1) if add_reconstruction else 0.0
         elbo = (
@@ -88,22 +141,34 @@ class NonSquareHeadDensity(Density):
         return {"elbo": elbo}
 
     def _dense_decode_program(self):
-        if self._program is None:
+        """The dense decode program of a flat chain, or None (cached)."""
+        if not self._program_checked:
             from ..ops.decode_jac import extract_dense_decode_program
 
             self._program = extract_dense_decode_program(self)
-            if self._program is None:
-                raise NotImplementedError(
-                    "this decode chain is not covered by the dense decode program; "
-                    "the generic Jacobian path waits for a later slice of the port"
-                )
+            self._program_checked = True
         return self._program
+
+    def _generic_jacobian(self, z):
+        """(recon_flat (B, D), jac_cols (d, B, D)): a JVP of the flat decode
+        for each of the d basis tangents, batched by ``torch.func.vmap``."""
+        batch, d = z.shape
+        basis = torch.eye(d, dtype=z.dtype, device=z.device)
+
+        def column(e):
+            return torch.func.jvp(self._decode_flat, (z,), (e.expand(batch, d),))
+
+        return torch.func.vmap(column, out_dims=(None, 0))(basis)
 
     def _exact_log_det(self, z):
         """(non_square.py:262-311) d basis-tangent pushforwards → Gram →
         Cholesky log-det. Returns (log_det, recon_flat, gram)."""
         global LOGDET_FALLBACKS
-        recon_flat, jac_cols = self._dense_decode_program()(z)
+        program = self._dense_decode_program()
+        if program is not None:
+            recon_flat, jac_cols = program(z)
+        else:
+            recon_flat, jac_cols = self._generic_jacobian(z)
         d, big_d = jac_cols.shape[0], jac_cols.shape[-1]
         if fused_gram_logdet_available(d, big_d):
             gram, log_det = fused_gram_logdet(jac_cols)
@@ -117,6 +182,66 @@ class NonSquareHeadDensity(Density):
             gram = gram_from_columns(jac_cols)
             log_det, _ = cholesky_logdet(gram)
         return log_det, recon_flat, gram
+
+    def _resolved_hutch_solver(self, d):
+        """'auto' picks the exact-Gram solver where a dense decode program
+        covers a flat chain with small d, else the reference's iterative CG
+        (nonsquare.py:270-300). The conv chains of the image models take CG."""
+        if self.hutchinson_solver != "auto":
+            return self.hutchinson_solver
+        if d <= _GRAM_SOLVER_MAX_D and self._dense_decode_program() is not None:
+            return "gram"
+        return "cg"
+
+    def _approx_log_det(self, z, generator=None, eps=None):
+        """(non_square.py:203-258) Hutchinson surrogate log-det with a
+        detached CG solve. Returns (log_det, recon_flat, diag_est)."""
+        batch, d = z.shape
+        if self._resolved_hutch_solver(d) == "gram":
+            raise NotImplementedError(
+                "hutchinson_solver='gram' (the exact-Gram Hutchinson solver, the 'auto' "
+                "choice on flat chains) waits for a later slice of the port; set "
+                "hutchinson_solver='cg'"
+            )
+        S = self.num_hutchinson_samples
+        if eps is None:
+            shape = (batch, d, S)
+            if self.hutchinson_distribution == "normal":
+                eps = torch.randn(shape, generator=generator, dtype=z.dtype, device=z.device)
+            elif self.hutchinson_distribution == "rademacher":
+                bits = torch.randint(0, 2, shape, generator=generator, device=z.device)
+                eps = (2 * bits - 1).to(z.dtype)
+            else:
+                raise ValueError(f"Unknown hutchinson distribution {self.hutchinson_distribution}")
+
+        decode_flat = self._decode_flat
+        recon_flat, vjp_fn = torch.func.vjp(decode_flat, z)
+
+        def jtj(v):  # JᵀJv, (B, d, S) → (B, d, S)
+            cols = []
+            for s in range(v.shape[-1]):
+                _, jv = torch.func.jvp(decode_flat, (z,), (v[..., s],))
+                cols.append(vjp_fn(jv)[0])
+            return torch.stack(cols, dim=-1)
+
+        jtj_eps = jtj(eps)  # the gradient flows through this factor
+
+        # Reference CG semantics (non_square.py:241-247): a detached solve
+        # whose first matvec is JᵀJε, so at cg_tolerance=1 the loop usually
+        # runs none; further matvecs reuse the linearisation without a graph.
+        with torch.no_grad():
+            jtj_inv_eps = batched_cg(
+                jtj,
+                eps.detach(),
+                max_iter=self.max_cg_iterations or d,
+                tolerance=self.cg_tolerance,
+                first_matvec=jtj_eps.detach(),
+            )
+
+        surrogate = (jtj_inv_eps * jtj_eps).sum(dim=1).mean(dim=-1)
+        # Unbiased Hutchinson estimate of diag(JᵀJ) for the g_kk regulariser.
+        diag_est = (eps * jtj_eps).mean(dim=-1)
+        return surrogate, recon_flat, diag_est
 
 
 class NonSquareTailDensity(Density):
@@ -153,3 +278,9 @@ class NonSquareTailDensity(Density):
         batch = u.shape[0]
         padded = torch.cat([u, u.new_zeros(batch, self.flattened_dims - self.latent_dimension)], dim=1)
         return padded[:, self.inverse_permutation].reshape(batch, *self.x_shape)
+
+    def _sample(self, num_samples, generator=None):
+        return self.decode(self.prior._sample(num_samples, generator))
+
+    def _fixed_sample(self, noise=None):
+        return self.decode(self.prior._fixed_sample(noise))

@@ -1,10 +1,11 @@
 """CLI for the port: ``python -m cmf_tpu_torch --model non-square --dataset
-miniboone --synthetic-data --nosave --config key=value ... [--device cpu]``.
+{miniboone,mnist} --synthetic-data --nosave --config key=value ...
+[--device cpu]``.
 
 The flags and the ``--config key=value`` mini-language are those of the JAX
 package's ``main.py`` (values typed by ``ast.literal_eval``), for the subset
-this slice carries: training only. Without ``--device cpu`` it runs on the
-card, and raises where there is none.
+the port carries so far: training only. Without ``--device cpu`` it runs on
+the card, and raises where there is none.
 """
 
 import argparse
@@ -40,7 +41,7 @@ def build_parser():
     parser.add_argument("--print-config", action="store_true")
     parser.add_argument("--print-schema", action="store_true")
     parser.add_argument("--synthetic-data", action="store_true",
-                        help="Use shape-matched synthetic stand-ins for tabular data.")
+                        help="Use shape-matched synthetic stand-ins for tabular and image data.")
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
                         help="Default: the card. `cpu' runs the plain PyTorch path.")
     return parser

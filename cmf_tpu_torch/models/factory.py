@@ -1,10 +1,13 @@
 """Model factory: schema (list of layer dicts) → density module tree
-(``cmf_tpu/models/factory.py`` in torch, the subset the flat non-square
-schemas use).
+(``cmf_tpu/models/factory.py`` in torch, the subset the flat and the
+multiscale image non-square schemas use).
 
-Covered: ``non-square-head`` (exact log-det), ``non-square-base``,
-``flatten``, ``flip``, ``rand-channel-perm``, ``acl`` with alternating-channel
-masks and MLP couplers, and the standard Gaussian. Any other layer type, mask, net or option raises
+Covered: ``dequantization``, ``split``, ``non-square-head`` (exact and
+Hutchinson + CG log-det), ``non-square-base``, ``flatten``, ``flip``,
+``rand-channel-perm``, ``squeeze``, ``logit``, ``scalar-mult``,
+``scalar-add``, ``acl`` with alternating-channel, checkerboard and
+split-channel masks, MLP and batchnorm-free ResNet couplers, and the
+standard Gaussian. Any other layer type, mask, net or option raises
 ``NotImplementedError`` naming it.
 
 Weights are drawn from ``generator`` (a ``torch.Generator``, seeded by the
@@ -16,18 +19,26 @@ import numpy as np
 
 from ..bijections import (
     AlternatingChannelwiseCouplingBijection,
+    Checkerboard2dCouplingBijection,
     FlipBijection,
+    LogitBijection,
     RandomChannelwisePermutationBijection,
+    ScalarAdditionBijection,
+    ScalarMultiplicationBijection,
+    SplitChannelwiseCouplingBijection,
+    Squeeze2dBijection,
     ViewBijection,
 )
 from ..couplers import ChunkedSharedCoupler, IndependentCoupler
 from ..densities import (
     BijectionDensity,
+    DequantizationDensity,
     DiagonalGaussianDensity,
     NonSquareHeadDensity,
     NonSquareTailDensity,
+    SplitDensity,
 )
-from ..nets import MLP, get_activation
+from ..nets import MLP, ResNet, get_activation
 
 
 def _later(what):
@@ -52,15 +63,34 @@ def get_density_recursive(schema, x_shape, generator):
     schema_tail = schema[1:]
     ty = layer_config["type"]
 
+    if ty == "dequantization":
+        return DequantizationDensity(density=get_density_recursive(schema_tail, x_shape, generator))
+
+    if ty == "split":
+        split_x_shape = (x_shape[0] // 2, *x_shape[1:])
+        return SplitDensity(
+            density_1=get_density_recursive(schema_tail, split_x_shape, generator),
+            density_2=get_standard_gaussian_density(split_x_shape, generator),
+            axis=1,
+            non_square=layer_config["non_square"],
+        )
+
     if ty == "non-square-head":
         if layer_config["m_flow"]:
             raise _later("the M-flow head (m_flow=True)")
+        d = layer_config["latent_dimension"]
+        max_cg = layer_config["max_cg_iterations"]
         return NonSquareHeadDensity(
             prior=get_density_recursive(schema_tail, x_shape, generator),
             regularization_param=layer_config["regularization_param"],
             log_jacobian_method=layer_config["log_jacobian_method"],
             x_shape=x_shape,
-            latent_dimension=layer_config["latent_dimension"],
+            hutchinson_distribution=layer_config["hutchinson_distribution"],
+            num_hutchinson_samples=layer_config["hutchinson_samples"],
+            max_cg_iterations=min(max_cg, d) if max_cg else d,
+            cg_tolerance=layer_config["cg_tolerance"],
+            latent_dimension=d,
+            hutchinson_solver=layer_config.get("hutchinson_solver", "auto"),
         )
 
     if ty == "non-square-base":
@@ -88,15 +118,32 @@ def get_bijection(layer_config, x_shape, generator):
         return FlipBijection(x_shape=x_shape, axis=1)
     if ty == "rand-channel-perm":
         return RandomChannelwisePermutationBijection(x_shape=x_shape, generator=generator)
+    if ty == "squeeze":
+        return Squeeze2dBijection(x_shape=x_shape, factor=layer_config["factor"])
+    if ty == "logit":
+        return LogitBijection(x_shape=x_shape)
+    if ty == "scalar-mult":
+        return ScalarMultiplicationBijection(x_shape=x_shape, value=layer_config["value"])
+    if ty == "scalar-add":
+        return ScalarAdditionBijection(x_shape=x_shape, value=layer_config["value"])
     if ty == "acl":
         return get_acl_bijection(layer_config, x_shape, generator)
     raise _later(f"layer type `{ty}'")
 
 
 def get_acl_bijection(config, x_shape, generator):
-    if config["mask_type"] != "alternating-channel":
-        raise _later(f"acl mask type `{config['mask_type']}'")
     num_x_channels = x_shape[0]
+    if config["mask_type"] == "checkerboard":
+        return Checkerboard2dCouplingBijection(
+            x_shape=x_shape,
+            coupler=get_coupler(
+                input_shape=(num_x_channels, *x_shape[1:]),
+                num_channels_per_output=num_x_channels,
+                config=config["coupler"],
+                generator=generator,
+            ),
+            reverse_mask=config["reverse_mask"],
+        )
 
     def coupler_factory(num_passthrough_channels):
         return get_coupler(
@@ -106,7 +153,13 @@ def get_acl_bijection(config, x_shape, generator):
             generator=generator,
         )
 
-    return AlternatingChannelwiseCouplingBijection(
+    masks = {
+        "alternating-channel": AlternatingChannelwiseCouplingBijection,
+        "split-channel": SplitChannelwiseCouplingBijection,
+    }
+    if config["mask_type"] not in masks:
+        raise _later(f"acl mask type `{config['mask_type']}'")
+    return masks[config["mask_type"]](
         x_shape=x_shape, coupler_factory=coupler_factory, reverse_mask=config["reverse_mask"]
     )
 
@@ -129,6 +182,15 @@ def get_coupler(input_shape, num_channels_per_output, config, generator):
 
 
 def get_coupler_net(input_shape, num_output_channels, net_config, generator):
+    if net_config["type"] == "resnet":
+        assert len(input_shape) == 3
+        return ResNet(
+            c_in=input_shape[0],
+            hidden_channels=net_config["hidden_channels"],
+            c_out=num_output_channels,
+            use_batchnorm=net_config.get("batchnorm", True),
+            generator=generator,
+        )
     if net_config["type"] != "mlp":
         raise _later(f"coupler net type `{net_config['type']}'")
     assert len(input_shape) == 1

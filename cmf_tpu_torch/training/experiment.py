@@ -54,7 +54,10 @@ def make_optimizer(config, params):
 
 def setup_experiment(config, device=None):
     """config → {"density", "trainer", "train_loader", "schema", "device"}.
-    ``device`` is ``None`` for the card (raises without one) or ``"cpu"``."""
+    ``device`` is ``None`` for the card (raises without one) or ``"cpu"``.
+    The weights come from a CPU generator seeded with ``config["seed"]``; the
+    train loop's draws (dequantization, Hutchinson probes) from a generator
+    on ``device`` with the same seed."""
     check_supported(config)
     device = resolve_device(device)
     pin_fp32()
@@ -76,6 +79,7 @@ def setup_experiment(config, device=None):
         optimizer=make_optimizer(config, density.parameters()),
         train_loader=train_loader,
         max_epochs=config["max_epochs"],
+        generator=torch.Generator(device=device).manual_seed(seed),
     )
     return {
         "density": density,

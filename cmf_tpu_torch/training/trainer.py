@@ -22,10 +22,16 @@ import time
 import torch
 
 
-def elbo_loss(density, x, flags):
-    """``-mean(elbo)`` of batch ``x`` under an epoch's objective ``flags``."""
+def elbo_loss(density, x, flags, generator=None, **draws):
+    """``-mean(elbo)`` of training batch ``x`` under an epoch's objective
+    ``flags``. ``generator`` draws the dequantization noise and the
+    Hutchinson probes; ``draws`` may pass them in instead
+    (``dequantization_noise``, ``hutchinson_eps``)."""
     info = density.elbo(
         x,
+        train=True,
+        generator=generator,
+        **draws,
         likelihood_wt=flags["likelihood_wt"],
         metric_wt=flags["metric_wt"],
         add_reconstruction=flags["add_reconstruction"],
@@ -37,8 +43,11 @@ def elbo_loss(density, x, flags):
 
 
 class Trainer:
-    def __init__(self, density, objective, optimizer, train_loader, max_epochs):
+    def __init__(self, density, objective, optimizer, train_loader, max_epochs, generator=None):
         self.density = density
+        # Draws the dequantization noise and the Hutchinson probes; a
+        # generator on the device the density lives on.
+        self.generator = generator
         self.objective = objective
         self.optimizer = optimizer
         self.train_loader = train_loader
@@ -52,7 +61,7 @@ class Trainer:
     def step(self, x, flags):
         """One optimizer step; returns (loss, grad_norm) as floats."""
         self.optimizer.zero_grad(set_to_none=False)
-        loss = elbo_loss(self.density, x, flags)
+        loss = elbo_loss(self.density, x, flags, self.generator)
         loss.backward()
         # A parameter the loss does not reach (the latent prior on a
         # warmup step) gets a zero gradient, as under jax.grad: Adam then

@@ -1,7 +1,8 @@
 """Import hygiene of the port: ``cmf_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of ``cmf_tpu``; the CLI without
-``--device cpu`` refuses to run where there is no CUDA device; and
-``chip_smoke.py`` exits non-zero with no result there."""
+import neither ``jax`` nor anything of ``cmf_tpu``, and importing them builds
+no kernel; the CLI without ``--device cpu`` refuses to run where there is no
+CUDA device, for the miniboone and the mnist models; and ``chip_smoke.py``
+exits non-zero with no result there."""
 
 import os
 import subprocess
@@ -21,8 +22,10 @@ names = [m.name for m in pkgutil.walk_packages(cmf_tpu_torch.__path__, "cmf_tpu_
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from cmf_tpu_torch.ops import cuda_build
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmf_tpu", "optax"))
-print(len(names), bad)
+built = sorted(cuda_build._LIBS) + sorted(cuda_build.BUILD_LOGS)
+print(len(names), "triton" in sys.modules, built, bad)
 """
 
 
@@ -36,19 +39,28 @@ def _run(args, **kw):
 def test_port_imports_no_jax_and_no_cmf_tpu():
     proc = _run(["-c", _PROBE])
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 25  # every module of the package was imported
+    n, triton, built, bad = proc.stdout.strip().splitlines()[-1].split(" ", 3)
+    assert int(n) >= 34  # every module of the package was imported
     assert bad == "[]"
+    assert (triton, built) == ("False", "[]")  # nothing built or compiled at import
 
 
-def test_cli_without_device_cpu_raises_without_a_card():
+def _cli_raises_without_a_card(dataset):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the CLI would run on it")
     from cmf_tpu_torch.main import main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
+        main(["--model", "non-square", "--dataset", dataset, "--synthetic-data", "--nosave",
               "--config", "early_stopping=False", "--config", "use_fid=False"])
+
+
+def test_cli_without_device_cpu_raises_without_a_card():
+    _cli_raises_without_a_card("miniboone")
+
+
+def test_mnist_cli_without_device_cpu_raises_without_a_card():
+    _cli_raises_without_a_card("mnist")
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -119,7 +119,8 @@ def test_get_loaders_matches_with_dataset_cap():
 @pytest.mark.parametrize(
     "key,value",
     [("nosave", False), ("early_stopping", True), ("use_fid", True), ("m_flow", True),
-     ("lr_schedule", "cosine"), ("max_grad_norm", 1.0), ("opt", "adamax")],
+     ("lr_schedule", "cosine"), ("max_grad_norm", 1.0), ("opt", "adamax"),
+     ("compute_dtype", "bfloat16")],
 )
 def test_unported_config_raises(key, value):
     config = {**small_config(), "nosave": True, "early_stopping": False, "use_fid": False}

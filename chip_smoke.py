@@ -11,7 +11,10 @@ Phases, each of which fails the run on its own failure:
 3. kernels     -- each kernel against its plain PyTorch version on the card,
                   at the main-path shapes and edge shapes; a rank-deficient
                   input must give a non-finite log-det; times of the kernel,
-                  the plain version and a library yardstick, and the bound.
+                  the plain version and a library yardstick, and the bound
+                  (for the coupler kernel both its 3xTF32 tensor-core bound
+                  and the fp32-pipe bound, its launch plan, and cuDNN with
+                  TF32 as an aside in other numerics).
 4. train       -- the port's CLI trains miniboone non-square at full width
                   with the likelihood on from step 1; the Gram/log-det
                   kernels' launch counts must equal the likelihood steps; then
@@ -47,9 +50,10 @@ BWD_TOL = 1e-3
 # each side summing in its own order.
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
-# Coupler kernel against its plain version: max |err| / max |ref|. Both are
-# fp32 with fp32 sums in another order (9·64 products a conv output, 17 convs
-# deep, then a tanh head); measured about 1e-5.
+# Coupler kernel against its plain version: max |err| / max |ref|. The
+# kernel runs its hidden convs in 3xTF32 on the tensor cores with fp32 sums,
+# the plain version in fp32, each summing in its own order (9·64 products a
+# conv output, 17 convs deep, then a tanh head); measured about 1e-5.
 COUPLER_TOL = 1e-4
 # Coupler shapes (B, C_in, C_out, H=W, hidden, blocks). Main path: the
 # checkerboard couplers at 28x28 and the split-channel / post-split
@@ -57,8 +61,11 @@ COUPLER_TOL = 1e-4
 # batch (250). The first one is the kernel's line in the JSON summary.
 COUPLER_MAIN = [(250, 1, 2, 28, 64, 8), (50, 1, 2, 28, 64, 8), (250, 2, 4, 14, 64, 8),
                 (50, 2, 4, 14, 64, 8)]
+# Edges: B=1 (a 14-CTA cluster), one block, hidden 16 (padded to 32), 7x7;
+# the cifar10 / svhn checkerboard coupler (3->6 at 32x32) and the celeba one
+# (3->6 at 64x64, a 16-CTA cluster with 16-channel weight chunks).
 COUPLER_EDGE = [(1, 1, 2, 28, 64, 8), (50, 1, 2, 28, 64, 1), (50, 2, 4, 14, 16, 8),
-                (3, 1, 2, 7, 16, 1)]
+                (3, 1, 2, 7, 16, 1), (8, 3, 6, 32, 64, 8), (2, 3, 6, 64, 64, 8)]
 # One mnist step on the card against the same step on the CPU, batch 8:
 # ten ResNet couplers of 17 convs, the Hutchinson surrogate through a JVP
 # and a VJP of the decode, and its second-order gradient, each side summing
@@ -73,6 +80,7 @@ MNIST_COUPLINGS = 10
 # H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 
 TRAIN_ARGV = [
     "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
@@ -134,9 +142,11 @@ def profiled_device_ms(fn, name, iters=50):
     return total_us / iters / 1e3 if total_us else None
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, n_tf32_flops=0):
+    """The least time for the work: bytes over the memory rate against
+    fp32-pipe FLOPs over 67 TFLOP/s plus tensor-core TF32 FLOPs over 495."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = (n_flops / PEAK_FP32_FLOP_PER_S + n_tf32_flops / PEAK_TF32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -169,9 +179,31 @@ def phase_build():
     print(f"[build] {', '.join(KERNEL_SOURCES)} built in parallel and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in KERNEL_SOURCES:
-        for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
-            if any(w in line for w in ("registers", "spill", "smem", "error")):
-                print(f"[build]   {name}: {line.strip()}")
+        for line in ptxas_report(cuda_build.BUILD_LOGS.get(name, "")):
+            print(f"[build]   {name}: {line}")
+
+
+def ptxas_report(log):
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its name
+    (template arguments kept), registers, static shared memory, spills."""
+    import re
+
+    lines, entry = [], None
+    for raw in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", raw)
+        if m:
+            mangled = m.group(1)
+            name = re.search(r"[a-z_]+_kernel", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            entry = (name.group(0) if name else mangled) + (f"<{','.join(args)}>" if args else "")
+        elif "spill" in raw and entry:
+            spills = raw.strip()
+        elif "Used" in raw and "registers" in raw and entry:
+            lines.append(f"{entry}: {raw.split(':', 1)[1].strip()}; {spills}")
+            entry = None
+        elif "error" in raw:
+            lines.append(raw.strip())
+    return lines
 
 
 def phase_kernels():
@@ -427,9 +459,10 @@ def random_coupler(b, c_in, c_out, hw, hidden, blocks, gen):
 
 def phase_coupler_kernel():
     """The coupler kernel against its plain version, the library yardstick
-    (the port's ResNet module through F.conv2d, cuDNN, TF32 off) and the
-    bound, at the main-path and edge shapes."""
+    (the port's ResNet module through F.conv2d, cuDNN, TF32 off) and its
+    bounds, at the main-path and edge shapes, with the launch plan."""
     import torch
+    from cmf_tpu_torch.device import pin_fp32
     from cmf_tpu_torch.ops import coupler_stack as cs
 
     gen = torch.Generator().manual_seed(0)
@@ -437,6 +470,8 @@ def phase_coupler_kernel():
     for shape in COUPLER_MAIN + COUPLER_EDGE:
         b, c_in, c_out, hw, hidden, blocks = shape
         net, x = random_coupler(*shape, gen)
+        plan = cs.plan_launch(b, c_in, hidden, hw, hw)
+        tag = "main" if shape in COUPLER_MAIN else "edge"
         with torch.no_grad():
             params = net.kernel_params()
             got = cs.coupler_stack_cuda(x, params)
@@ -445,9 +480,11 @@ def phase_coupler_kernel():
             abs_err = float((got - ref).abs().max())
             err = abs_err / float(ref.abs().max())
             ok = err <= COUPLER_TOL and bool(torch.isfinite(got).all())
-            tag = "main" if shape in COUPLER_MAIN else "edge"
             print(f"[kernels] coupler_stack {tag} B={b} {c_in}->{c_out} {hw}x{hw} hidden {hidden} "
-                  f"blocks {blocks}: max err / max |ref| {err:.3e} (tol {COUPLER_TOL:g}), abs {abs_err:.3e}")
+                  f"blocks {blocks}: max err / max |ref| {err:.3e} (tol {COUPLER_TOL:g}), abs {abs_err:.3e}; "
+                  f"plan: cluster {plan.cluster} ({cs.max_active_clusters(plan, hw, hw)} active at once), "
+                  f"band {plan.rows} rows, {plan.tiles} n-tiles a warp, {plan.kc}-channel weight chunks, "
+                  f"{plan.smem_bytes} B shared memory a CTA")
             assert ok, f"coupler kernel disagrees with its plain version at {shape}"
             if tag == "edge":
                 continue
@@ -455,23 +492,41 @@ def phase_coupler_kernel():
             ms = cuda_ms(lambda: cs.coupler_stack_cuda(x, params), iters=iters, warmup=3)
             device_ms = profiled_device_ms(lambda: cs.coupler_stack_cuda(x, params),
                                            "coupler_stack_kernel", iters=10)
+            pack_ms = cuda_ms(lambda: cs.pack_weights(params, c_in, hidden, c_out, x.device, plan.kc),
+                              iters=iters, warmup=3)
             plain_ms = cuda_ms(lambda: cs.coupler_stack_plain(x, params), iters=5, warmup=1)
             library_ms = cuda_ms(lambda: net(x), iters=iters, warmup=3)
+            # cuDNN in TF32: other numerics (about 1e-2 off, like single-pass
+            # TF32), shown beside the fp32 yardstick and never used as it.
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                tf32_ms = cuda_ms(lambda: net(x), iters=iters, warmup=3)
+                tf32_err = rel_err(net(x), ref)
+            finally:
+                pin_fp32()
         n_weights = sum(p.numel() for p in net.parameters())
         n_bytes = 4 * (x.numel() + n_weights + got.numel())
         n_flops = cs.flops(b, c_in, hidden, c_out, blocks, hw, hw)
-        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        n_tc = cs.tensor_core_flops(b, hidden, blocks, hw, hw)
+        b_ms, b_by = bound_ms(n_bytes, n_flops - n_tc, 3 * n_tc)
+        fp32_b_ms, _ = bound_ms(n_bytes, n_flops)
         dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
         print(f"[kernels] coupler_stack B={b} {c_in}->{c_out} {hw}x{hw}: {ms:.6f} ms per call back to "
-              f"back, kernel device time {dev_txt}, plain {plain_ms:.6f} ms, library (cuDNN module) "
-              f"{library_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}: {n_bytes} B, {n_flops:.6g} FLOP)")
+              f"back (of which packing the weights {pack_ms:.6f} ms), kernel device time {dev_txt}, "
+              f"plain {plain_ms:.6f} ms, library (cuDNN module, fp32) {library_ms:.6f} ms; "
+              f"cuDNN module in TF32 (other numerics, max err / max |ref| {tf32_err:.3e}) {tf32_ms:.6f} ms")
+        print(f"[kernels] coupler_stack B={b} {c_in}->{c_out} {hw}x{hw} bounds: 3xTF32 tensor cores "
+              f"{b_ms:.6f} ms ({b_by}: {n_bytes} B, {n_tc:.6g} FLOP x3 at 495 TFLOP/s + "
+              f"{n_flops - n_tc:.6g} FLOP at 67), share {b_ms / ms:.3f}; fp32 pipes {fp32_b_ms:.6f} ms "
+              f"({n_flops:.6g} FLOP at 67 TFLOP/s), share {fp32_b_ms / ms:.3f}")
         if summary is None:
             summary = {
                 "name": "coupler_stack", "route": "cuda", "source": "cmf_tpu_torch/csrc/coupler_stack.cu",
                 "replaces": "cmf_tpu/ops/pallas/coupler_stack.py:124", "launches": None,
                 "_launches_key": "COUPLER_LAUNCHES", "shape": list(shape), "max_abs_err": abs_err,
                 "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bound": "3xTF32 on the tensor cores",
+                "fp32_bound_ms": fp32_b_ms, "library_ms": library_ms,
             }
     return summary
 

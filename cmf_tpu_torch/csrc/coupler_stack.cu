@@ -2,8 +2,9 @@
 // for Hopper (sm_90a).
 //
 // Replaces the Pallas/TPU kernel cmf_tpu/ops/pallas/coupler_stack.py::_kernel
-// (:124, launched by _call :166 through fused_resnet_coupler :198), in its
-// default arithmetic (bf16=False, stack_taps=False): fp32 operands, fp32 sums.
+// (:124, launched by _call :169 through fused_resnet_coupler :198), in its
+// default arithmetic (bf16=False): fp32 inputs, weights, biases, residual
+// stream, outputs and sums.
 //
 // Per image b, with hidden width Hd and K residual blocks, it computes
 // ResNet.apply of the batchnorm-free coupler net (cmf_tpu/nets/core.py:271):
@@ -11,182 +12,508 @@
 //   h  += conv3x3(relu(conv3x3(relu(h)) + b1)) + b2    (K times)
 //   out = head_w · tanh(conv1x1(relu(h)) + b_out) + head_b
 // Every 3×3 conv is a cross-correlation with zero padding at the image
-// border: the 9 taps (dy, dx) ∈ {-1,0,1}² read the source pixel (y+dy, x+dx)
-// where it lies inside the image and 0 elsewhere, as the TPU kernel's tap
-// masks do (coupler_stack.py:70-80).
-//
-// Design. The TPU kernel keeps channels on sublanes and flattened,
-// 128-padded pixels on lanes, and runs each conv as 9 rolled, masked
-// (64×64)·(64, L) matmuls in VMEM. None of that carries over. Here one thread
-// block owns one image and walks all 2K+2 layers with a barrier between
-// them, so the whole coupler is one launch. The residual stream h and one
-// temporary t live in a global scratch of 2·Hd·H·W floats per image, sized
-// by the wrapper from the batch (100 MB at B=250, 28×28, Hd=64); a block
-// re-reads its own maps, which stay in the SM's L1 and the 50 MB L2. A warp
-// owns 8 output channels × 128 pixels: each lane accumulates 8 channels for
-// 4 pixels 32 apart, so the input loads of a warp are coalesced and the 8
-// weights of one (input channel, tap) are two float4 loads that every lane of
-// the warp shares. Weights come repacked as [input channel][tap][output
-// channel] through the read-only path.
+// border, as the TPU kernel's tap masks give (coupler_stack.py:70-80).
 //
 // Bound on an H100 SXM: operations. A 28×28 coupler with Hd=64, K=8 is
-// ~926 MFLOP per image (2·9·64·64·784 per 3×3 conv, 16 of them), 46.3 GFLOP
-// at B=50, against ~2.8 MB of weights, images and outputs that must move:
-// 0.69 ms at the 67 TFLOP/s fp32 peak (no tensor cores), ~1 µs of bytes. What holds this version back: one
-// block per image leaves 82 of 132 SMs idle at B=50, and the FMAs run on the
-// fp32 pipes with a load for every 5 of them. Thread-block clusters that
-// split an image over several SMs, and tensor cores (the bf16 / stack_taps
-// variants), are later work.
+// ~926 MFLOP an image, 16 of its 17 convs Hd×Hd 3×3. On the tensor cores in
+// 3×TF32 (below) that is 3·FLOP at 495 TFLOP/s: 1.40 ms at B=250, against
+// 3.46 ms at the 67 TFLOP/s of the fp32 pipes. Single-pass TF32 is ~1e-2
+// off the fp32 result, so every Hd×Hd conv splits each operand into a TF32
+// high part and a TF32 low part and sums lo·hi + hi·lo + hi·hi in fp32
+// (mma.sync m16n8k8 TF32), which stays in fp32's accuracy class.
+//
+// Design.
+// - One image is one thread-block cluster of N CTAs (N ≤ 16). CTA r owns
+//   image rows [r·H/N, (r+1)·H/N) across all channels. Its band of the
+//   residual stream h and of the temporary t lives in shared memory for all
+//   17 convs: no device-memory scratch. Each map is [Hd][S] floats with rows
+//   of W+1 (one zero column shared between neighbouring rows) and one halo
+//   row above and below the band; a 3×3 tap is then a constant offset and no
+//   masks are needed. S ≡ 8 or 24 (mod 32), so the 4 channels × 8 pixels of
+//   a B fragment load fall in 32 different banks.
+// - Before a conv reads a map, the CTA copies its two halo rows out of the
+//   neighbouring CTAs' shared memory (distributed shared memory, after a
+//   cluster barrier). Two cluster barriers per residual block: after conv1
+//   writes t, and after conv2 adds into h.
+// - Each Hd×Hd 3×3 conv is an implicit GEMM out[Hd × P] = W[Hd × 9Hd] ·
+//   X[9Hd × P], K ordered (tap, input channel), as the TPU kernel's
+//   stack_taps operand (coupler_stack.py:99-109). 16 warps a CTA, 2 along
+//   the output channels (Hd padded to 32 or 64) and 8 along the band's
+//   pixels: a warp owns Hd/32 m-tiles of 16 channels and 1-4 n-tiles of 8
+//   pixels, a compile-time count, so its inner loop has no branch and fits
+//   the 128 registers a thread of 512 may hold, and 4 warps on each SM
+//   sub-partition hide each other's load and mma latencies. The weights come
+//   split into
+//   hi/lo TF32 by the wrapper, packed in mma fragment order (one 16-byte
+//   load per lane per m-tile and k-step), and stream through a 3-stage
+//   cp.async ring in chunks of one tap × 16 or 32 input channels, while the
+//   tensor cores work on the chunk before. The ring runs across conv
+//   boundaries.
+// - The tensor cores truncate as they accumulate, so the mmas of each span
+//   of 4 k-steps (32 input channels of a tap) sum into a fresh partial that
+//   the fp32 pipes add into the running sum (conv3x3_mma).
+// - conv_in (K = 9·C_in) and the 1×1 conv with its tanh head are small and
+//   stay on the fp32 pipes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kOcTile = 8;                 // output channels per lane
-constexpr int kPx = 4;                     // pixels per lane, 32 apart
-constexpr int kPxGroup = 32 * kPx;         // pixels per warp work item
+constexpr int kThreads = 512;
+constexpr int kWarpsN = kThreads / 32 / 2;           // warps along the pixels; 2 along the channels
+constexpr int kMaxTiles = 4;                         // n-tiles of 8 pixels per warp
+constexpr int kMaxPixels = kWarpsN * kMaxTiles * 8;  // pixels per CTA band
+constexpr int kStages = 3;                           // weight ring depth
+constexpr int kSpan = 4;                             // k-steps a partial sum spans
+constexpr int kMaxCluster = 16;
+constexpr int kSmemLimit = 232448;
 
-// out[o][p] (+)= bias[o] + Σ_tap Σ_i wt[i][tap][o] · act(in[i][p + tap]),
-// act = relu when kReluIn. O must be a multiple of kOcTile. `in` and `out`
-// are maps this kernel writes, so they are read through the coherent path.
-template <bool kReluIn, bool kAccumulate>
-__device__ __forceinline__ void conv3x3(const float* in, int I, const float* __restrict__ wt,
-                                        const float* __restrict__ bias, float* out, int O,
-                                        int H, int W) {
-  const int P = H * W;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int n_oc = O / kOcTile;
-  const int n_items = n_oc * ((P + kPxGroup - 1) / kPxGroup);
-  for (int item = warp; item < n_items; item += n_warps) {
-    const int oc0 = (item % n_oc) * kOcTile;
-    const int p0 = (item / n_oc) * kPxGroup + lane;
-    int py[kPx], px[kPx];
+struct Args {
+  const float* x;      // (B, C_in, H, W)
+  const float* frags;  // hi/lo TF32 fragments of the 2K Hd×Hd convs, in stream order
+  const float* small;  // w_in [C_in][9][Hd]; biases [2K][Hd]; w_out [Hd][C_out]; b_out, head_w, head_b
+  float* out;          // (B, C_out, H, W)
+  int C_in, H, W, Hd, num_blocks, C_out, cluster, S, kc;
+};
+
+// Where a CTA's band sits and how its maps are laid out.
+struct Band {
+  int rank, img, r0, rows, P, Wp;
+  __device__ int addr(int p, int W) const {  // map index of band pixel p
+    const int r = p / W;
+    return 1 + (r + 1) * Wp + (p - r * W);
+  }
+};
+
+__device__ __forceinline__ int band_start(int rank, int H, int N) { return rank * H / N; }
+
+// What cvt.rna.tf32.f32 gives for an x that is not NaN: round to 10
+// mantissa bits, ties away from zero (ops/coupler_stack.py::tf32_round).
+// Two integer ops, where the cvt instruction costs several.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// The same with a zero accumulator in: d = a·b.
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16-byte copies a thread of one weight chunk: KC input channels × 32·MW
+// outputs × hi/lo floats.
+template <int MW, int KC>
+__host__ __device__ constexpr int ring_copies() {
+  static_assert(KC * 32 * MW * 2 % (4 * kThreads) == 0, "a chunk splits evenly over the threads");
+  return KC * 32 * MW * 2 / (4 * kThreads);
+}
+
+// The weight stream: chunk c of `total` goes to ring stage c % kStages.
+struct Ring {
+  float* base;
+  const float* src;
+  int chunk_floats, total;
+  // kCopies 16-byte copies a thread: chunk_floats == 4 · kCopies · kThreads.
+  template <int kCopies>
+  __device__ __forceinline__ void issue(int c) const {
+    if (c < total) {
+      const float4* g = reinterpret_cast<const float4*>(src + (size_t)c * chunk_floats) + threadIdx.x;
+      float4* s = reinterpret_cast<float4*>(base + (c % kStages) * chunk_floats) + threadIdx.x;
 #pragma unroll
-    for (int k = 0; k < kPx; ++k) {
-      const int p = p0 + 32 * k;
-      py[k] = p < P ? p / W : -2;  // a pixel past the end: every tap masked
-      px[k] = p % W;
+      for (int q = 0; q < kCopies; ++q) cp_async16(s + q * kThreads, g + q * kThreads);
     }
-    float acc[kPx][kOcTile];
-#pragma unroll
-    for (int k = 0; k < kPx; ++k)
-#pragma unroll
-      for (int c = 0; c < kOcTile; ++c) acc[k][c] = 0.f;
+    cp_async_commit();  // an empty group past the end keeps the wait counts uniform
+  }
+};
 
+// dst[o][p] (+)= bias[o] + Σ_{tap,i} W[o][tap,i] · relu(src[i][p + tap]) over
+// the band, 3×TF32 on the tensor cores. Consumes 9·Hd/KC ring chunks.
+//
+// Warp w owns m-tiles (w % 2)·MW .. +MW (MW·16 output channels) and the n
+// tiles w/2 + 8·j, j < NT, of 8 band pixels each. A tile past the band reads
+// a clamped pixel and is not stored, so every warp runs the same mmas and
+// no branch splits the inner loop.
+//
+// The tensor cores add into their fp32 accumulator with truncation, so 72
+// k-steps of 3 mmas into one running sum drift by ~1e-4 over the 16 convs
+// (max error / max |out| on the card, against ~7e-6 in fp32). The mmas of
+// each span of kSpan k-steps go into a fresh partial sum instead, which the
+// fp32 pipes add into the running sum (round to nearest): ~1e-5. The mmas of
+// a k-step are issued term by term over all (m, n) tile pairs, so two mmas
+// into the same partial are MW·NT issues apart.
+template <int MW, int NT, int KC>
+__device__ __forceinline__ void conv3x3_mma(const float* src, float* dst, bool accumulate,
+                                            const float* __restrict__ bias, const Args& a,
+                                            const Band& band, const Ring& ring, int& chunk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = (warp & 1) * MW, n0 = warp >> 1;
+  const int S = a.S, W = a.W;
+
+  int pb[NT];
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-      int off[kPx];
-      bool ok[kPx];
+  for (int j = 0; j < NT; ++j) pb[j] = band.addr(min((n0 + kWarpsN * j) * 8 + gid, band.P - 1), W);
+  float acc[MW][NT][4];
 #pragma unroll
-      for (int k = 0; k < kPx; ++k) {
-        const int y = py[k] + dy, x = px[k] + dx;
-        ok[k] = y >= 0 && y < H && x >= 0 && x < W;
-        off[k] = ok[k] ? y * W + x : 0;
-      }
-      const float* src = in;
-      const float* w = wt + tap * O + oc0;
-      for (int i = 0; i < I; ++i, src += P, w += 9 * O) {
-        float v[kPx];
+  for (int m = 0; m < MW; ++m)
 #pragma unroll
-        for (int k = 0; k < kPx; ++k) {
-          const float a = ok[k] ? src[off[k]] : 0.f;
-          v[k] = kReluIn ? fmaxf(a, 0.f) : a;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  const int n_cb = a.Hd / KC;
+  const int mt_all = a.Hd / 16;
+  for (int tap = 0; tap < 9; ++tap) {
+    const int off = (tap / 3 - 1) * band.Wp + (tap % 3 - 1);
+    for (int cb = 0; cb < n_cb; ++cb, ++chunk) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // chunk landed for every thread; the stage refilled below is free
+      ring.template issue<ring_copies<MW, KC>()>(chunk + kStages - 1);
+      const uint4* frag =
+          reinterpret_cast<const uint4*>(ring.base + (chunk % kStages) * ring.chunk_floats);
+      const float* s0 = src + (cb * KC + tig) * S + off;
+      float part[MW][NT][4];
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks, s0 += 8 * S) {
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          split_tf32(fmaxf(s0[pb[j]], 0.f), bh[j][0], bl[j][0]);
+          split_tf32(fmaxf(s0[4 * S + pb[j]], 0.f), bh[j][1], bl[j][1]);
         }
+        uint4 ah[MW], al[MW];
+#pragma unroll
+        for (int m = 0; m < MW; ++m) {
+          ah[m] = frag[((ks * mt_all + m0 + m) * 2 + 0) * 32 + lane];
+          al[m] = frag[((ks * mt_all + m0 + m) * 2 + 1) * 32 + lane];
+        }
+        // part holds the sum over kSpan k-steps: zero-initialised by the
+        // first mma of the span, added into acc after the last.
+        constexpr int span = kSpan < KC / 8 ? kSpan : KC / 8;
+        const bool first = ks % span == 0, last = ks % span == span - 1;
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {  // small terms first
+            if (first) mma_tf32_zero(part[m][j], al[m], bh[j][0], bh[j][1]);
+            else mma_tf32(part[m][j], al[m], bh[j][0], bh[j][1]);
+          }
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_tf32(part[m][j], ah[m], bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            mma_tf32(part[m][j], ah[m], bh[j][0], bh[j][1]);
+            if (last)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][j][e] += part[m][j][e];
+          }
+      }
+    }
+  }
+
+  // Accumulator e of (m, j): output channel (m0 + m)·16 + gid + 8·(e ≥ 2),
+  // band pixel (n0 + 8·j)·8 + 2·tig + (e & 1); -1 marks a pixel past the band.
+  int px[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = (n0 + kWarpsN * j) * 8 + 2 * tig + i;
+      px[j][i] = p < band.P ? band.addr(p, W) : -1;
+    }
+#pragma unroll
+  for (int m = 0; m < MW; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = (m0 + m) * 16 + gid + ((e >> 1) << 3);
+      const float b = __ldg(bias + o);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (px[j][e & 1] < 0) continue;
+        const int idx = o * S + px[j][e & 1];
+        const float v = acc[m][j][e] + b;
+        dst[idx] = accumulate ? dst[idx] + v : v;
+      }
+    }
+  }
+}
+
+// Copy the map's halo rows out of the neighbouring CTAs' shared memory.
+__device__ void copy_halos(float* map, const Args& a, const Band& band, cg::cluster_group& cluster) {
+  const int W = a.W, S = a.S, n = a.Hd * W;
+  if (band.rank > 0) {  // top halo ← last row of the band above
+    const float* nb = cluster.map_shared_rank(map, band.rank - 1);
+    const int rows_up = band.r0 - band_start(band.rank - 1, a.H, a.cluster);
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      const int ch = q / W, c = q - ch * W;
+      map[ch * S + 1 + c] = nb[ch * S + 1 + rows_up * band.Wp + c];
+    }
+  }
+  if (band.rank < a.cluster - 1) {  // bottom halo ← first row of the band below
+    const float* nb = cluster.map_shared_rank(map, band.rank + 1);
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      const int ch = q / W, c = q - ch * W;
+      map[ch * S + 1 + (band.rows + 1) * band.Wp + c] = nb[ch * S + 1 + band.Wp + c];
+    }
+  }
+}
+
+template <int MW, int NT, int KC>
+__global__ void __launch_bounds__(kThreads, 1) coupler_stack_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* hmap = reinterpret_cast<float*>(smem4);
+  float* tmap = hmap + a.Hd * a.S;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  Band band;
+  band.rank = (int)cluster.block_rank();
+  band.img = blockIdx.x / a.cluster;
+  band.r0 = band_start(band.rank, a.H, a.cluster);
+  band.rows = band_start(band.rank + 1, a.H, a.cluster) - band.r0;
+  band.P = band.rows * a.W;
+  band.Wp = a.W + 1;
+  const int W = a.W, S = a.S, P = band.P;
+
+  Ring ring;
+  ring.base = tmap + a.Hd * a.S;
+  ring.src = a.frags;
+  ring.chunk_floats = KC * a.Hd * 2;
+  ring.total = a.num_blocks * 2 * 9 * (a.Hd / KC);
+  for (int c = 0; c < kStages - 1; ++c) ring.template issue<ring_copies<MW, KC>()>(c);
+
+  // Both maps to zero: the pad columns, and the halo rows at the image border.
+  for (int q = threadIdx.x; q < a.Hd * S / 2; q += kThreads) smem4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // Stage the input band with its halo rows in t's place.
+  const float* xb = a.x + (size_t)band.img * a.C_in * a.H * W;
+  const int n_x = a.C_in * (band.rows + 2) * W;
+  for (int q = threadIdx.x; q < n_x; q += kThreads) {
+    const int ch = q / ((band.rows + 2) * W);
+    const int rem = q - ch * (band.rows + 2) * W;
+    const int rr = rem / W, c = rem - rr * W;
+    const int r = band.r0 - 1 + rr;
+    if (r >= 0 && r < a.H) tmap[ch * S + 1 + rr * band.Wp + c] = __ldg(xb + ((size_t)ch * a.H + r) * W + c);
+  }
+  __syncthreads();
+
+  // conv_in on the fp32 pipes: a thread owns 8 output channels of a pixel.
+  const float* w_in = a.small;
+  for (int item = threadIdx.x; item < (a.Hd / 8) * P; item += kThreads) {
+    const int og = item / P, p = item - og * P;
+    const int base = band.addr(p, W);
+    float acc[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[q] = 0.f;
+    for (int i = 0; i < a.C_in; ++i) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const float v = tmap[i * S + base + (tap / 3 - 1) * band.Wp + (tap % 3 - 1)];
+        const float* w = w_in + (i * 9 + tap) * a.Hd + og * 8;
         const float4 wa = __ldg(reinterpret_cast<const float4*>(w));
         const float4 wb = __ldg(reinterpret_cast<const float4*>(w + 4));
-        const float wv[kOcTile] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int k = 0; k < kPx; ++k)
-#pragma unroll
-          for (int c = 0; c < kOcTile; ++c) acc[k][c] = fmaf(wv[c], v[k], acc[k][c]);
+        acc[0] = fmaf(wa.x, v, acc[0]);
+        acc[1] = fmaf(wa.y, v, acc[1]);
+        acc[2] = fmaf(wa.z, v, acc[2]);
+        acc[3] = fmaf(wa.w, v, acc[3]);
+        acc[4] = fmaf(wb.x, v, acc[4]);
+        acc[5] = fmaf(wb.y, v, acc[5]);
+        acc[6] = fmaf(wb.z, v, acc[6]);
+        acc[7] = fmaf(wb.w, v, acc[7]);
       }
     }
-
 #pragma unroll
-    for (int k = 0; k < kPx; ++k) {
-      const int p = p0 + 32 * k;
-      if (p >= P) continue;
-#pragma unroll
-      for (int c = 0; c < kOcTile; ++c) {
-        const int o = oc0 + c;
-        float r = acc[k][c] + (bias != nullptr ? __ldg(bias + o) : 0.f);
-        float* dst = out + (size_t)o * P + p;
-        if (kAccumulate) r += *dst;
-        *dst = r;
-      }
-    }
+    for (int q = 0; q < 8; ++q) hmap[(og * 8 + q) * S + base] = acc[q];
   }
-}
 
-// out[o][p] = head_w[o] · tanh(Σ_i w[i][o] · relu(h[i][p]) + b[o]) + head_b[o].
-__device__ __forceinline__ void conv1x1_head(const float* h, int Hd, const float* __restrict__ w,
-                                             const float* __restrict__ b,
-                                             const float* __restrict__ head_w,
-                                             const float* __restrict__ head_b,
-                                             float* __restrict__ out, int C_out, int P) {
-  for (int q = threadIdx.x; q < C_out * P; q += blockDim.x) {
-    const int o = q / P, p = q - o * P;
-    float acc = 0.f;
-    for (int i = 0; i < Hd; ++i) acc = fmaf(__ldg(w + i * C_out + o), fmaxf(h[(size_t)i * P + p], 0.f), acc);
-    out[q] = __ldg(head_w + o) * tanhf(acc + __ldg(b + o)) + __ldg(head_b + o);
+  const float* biases = w_in + a.C_in * 9 * a.Hd;
+  int chunk = 0;
+  if (a.num_blocks > 0) {
+    cluster.sync();
+    copy_halos(hmap, a, band, cluster);
   }
-}
-
-// Packed weights, in order: w_in [C_in][9][Hd]; per block w1 [Hd][9][Hd],
-// b1 [Hd], w2 [Hd][9][Hd], b2 [Hd]; w_out [Hd][C_out], b_out, head_w,
-// head_b [C_out]. Every 3×3 segment starts at a multiple of 8 floats.
-__global__ void __launch_bounds__(kThreads)
-coupler_stack_kernel(const float* __restrict__ x, const float* __restrict__ weights,
-                     float* __restrict__ out, float* scratch, int C_in, int H, int W, int Hd,
-                     int num_blocks, int C_out) {
-  const int b = blockIdx.x;
-  const int P = H * W;
-  const float* xb = x + (size_t)b * C_in * P;
-  float* h = scratch + (size_t)b * 2 * Hd * P;
-  float* t = h + (size_t)Hd * P;
-  const size_t w33 = (size_t)Hd * 9 * Hd;
-
-  const float* w = weights;
-  conv3x3<false, false>(xb, C_in, w, nullptr, h, Hd, H, W);
-  w += (size_t)C_in * 9 * Hd;
   __syncthreads();
-  for (int k = 0; k < num_blocks; ++k) {
-    const float* w1 = w;
-    const float* b1 = w1 + w33;
-    const float* w2 = b1 + Hd;
-    const float* b2 = w2 + w33;
-    w = b2 + Hd;
-    conv3x3<true, false>(h, Hd, w1, b1, t, Hd, H, W);
+  for (int k = 0; k < a.num_blocks; ++k) {
+    conv3x3_mma<MW, NT, KC>(hmap, tmap, false, biases + (2 * k) * a.Hd, a, band, ring, chunk);
+    cluster.sync();
+    copy_halos(tmap, a, band, cluster);
     __syncthreads();
-    conv3x3<true, true>(t, Hd, w2, b2, h, Hd, H, W);
+    conv3x3_mma<MW, NT, KC>(tmap, hmap, true, biases + (2 * k + 1) * a.Hd, a, band, ring, chunk);
+    // After this barrier no CTA of the cluster reads another's t again, and
+    // h's halos are read only if another conv follows. So a CTA may leave
+    // after the last one.
+    cluster.sync();
+    if (k + 1 < a.num_blocks) copy_halos(hmap, a, band, cluster);
     __syncthreads();
   }
-  const float* w_out = w;
-  const float* b_out = w_out + (size_t)Hd * C_out;
-  conv1x1_head(h, Hd, w_out, b_out, b_out + C_out, b_out + 2 * C_out,
-               out + (size_t)b * C_out * P, C_out, P);
+
+  // relu → 1×1 conv + b → head_w·tanh + head_b, on the band's own pixels.
+  const float* w_out = biases + 2 * a.num_blocks * a.Hd;
+  const float* b_out = w_out + a.Hd * a.C_out;
+  const float* head_w = b_out + a.C_out;
+  const float* head_b = head_w + a.C_out;
+  float* ob = a.out + (size_t)band.img * a.C_out * a.H * W + (size_t)band.r0 * W;
+  for (int q = threadIdx.x; q < a.C_out * P; q += kThreads) {
+    const int o = q / P, p = q - o * P;
+    const int base = band.addr(p, W);
+    float acc = 0.f;
+    for (int i = 0; i < a.Hd; ++i) acc = fmaf(__ldg(w_out + i * a.C_out + o), fmaxf(hmap[i * S + base], 0.f), acc);
+    ob[(size_t)o * a.H * W + p] = __ldg(head_w + o) * tanhf(acc + __ldg(b_out + o)) + __ldg(head_b + o);
+  }
+}
+
+int smem_bytes(int Hd, int S, int kc) { return 4 * (2 * Hd * S + kStages * kc * Hd * 2); }
+
+template <int MW, int NT, int KC>
+cudaError_t prepare(int cluster, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(coupler_stack_kernel<MW, NT, KC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(coupler_stack_kernel<MW, NT, KC>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+template <int MW, int NT, int KC>
+cudaError_t launch(const Args& a, int B, int smem, cudaStream_t stream) {
+  cudaError_t e = prepare<MW, NT, KC>(a.cluster, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * a.cluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, coupler_stack_kernel<MW, NT, KC>, a);
+}
+
+template <int MW, int NT, int KC>
+cudaError_t max_clusters(int cluster, int smem, int* n) {
+  cudaError_t e = prepare<MW, NT, KC>(cluster, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(cluster * 64), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(n, coupler_stack_kernel<MW, NT, KC>, &cfg);
+}
+
+// The instance for a padded hidden width (32 or 64), n-tiles a warp and
+// chunk depth.
+#define CMF_DISPATCH(Hd, nt, kc, CALL)                                       \
+  switch (((Hd) / 32) * 100 + (nt) * 10 + (kc) / 16) {                       \
+    case 112: return CALL(1, 1, 32);                                         \
+    case 122: return CALL(1, 2, 32);                                         \
+    case 132: return CALL(1, 3, 32);                                         \
+    case 142: return CALL(1, 4, 32);                                         \
+    case 212: return CALL(2, 1, 32);                                         \
+    case 222: return CALL(2, 2, 32);                                         \
+    case 232: return CALL(2, 3, 32);                                         \
+    case 242: return CALL(2, 4, 32);                                         \
+    case 241: return CALL(2, 4, 16);                                         \
+    default: return cudaErrorInvalidValue;                                   \
+  }
+
+int tiles_per_warp(int H, int W, int cluster) {
+  const int rows = (H + cluster - 1) / cluster;
+  return ((rows * W + 7) / 8 + kWarpsN - 1) / kWarpsN;
+}
+
+cudaError_t launch_any(const Args& a, int B, int smem, cudaStream_t stream) {
+#define CMF_LAUNCH(MW, NT, KC) launch<MW, NT, KC>(a, B, smem, stream)
+  CMF_DISPATCH(a.Hd, tiles_per_warp(a.H, a.W, a.cluster), a.kc, CMF_LAUNCH)
+#undef CMF_LAUNCH
+}
+
+cudaError_t max_clusters_any(int Hd, int nt, int kc, int cluster, int smem, int* n) {
+#define CMF_OCCUPANCY(MW, NT, KC) max_clusters<MW, NT, KC>(cluster, smem, n)
+  CMF_DISPATCH(Hd, nt, kc, CMF_OCCUPANCY)
+#undef CMF_OCCUPANCY
+}
+
+// The launch plan the wrapper chose (ops/coupler_stack.py::plan_launch),
+// checked again here: a plan the kernel cannot run is refused, not launched.
+bool plan_ok(int C_in, int H, int W, int Hd, int cluster, int S, int kc) {
+  if (H < 1 || W < 1 || C_in < 1 || (Hd != 32 && Hd != 64) || C_in > Hd) return false;
+  if (cluster < 1 || cluster > kMaxCluster || cluster > H) return false;
+  if (kc != 32 && !(kc == 16 && Hd == 64 && tiles_per_warp(H, W, cluster) == 4)) return false;
+  const int rows = (H + cluster - 1) / cluster;
+  if (rows * W > kMaxPixels) return false;
+  if (S % 8 != 0 || S < (rows + 2) * (W + 1) + 1) return false;
+  return smem_bytes(Hd, S, kc) <= kSmemLimit;
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers of contiguous
-// fp32 tensors: x (B, C_in, H, W); weights packed as above; out
-// (B, C_out, H, W); scratch (B, 2, Hd, H, W). Hd must be a positive multiple
-// of 8. The kernel runs on `stream`; the return value is cudaGetLastError()
-// after the launch (0 = launched).
-extern "C" int cmf_coupler_stack_fwd(const void* x, const void* weights, void* out, void* scratch,
+// fp32 tensors: x (B, C_in, H, W); frags and small packed by
+// ops/coupler_stack.py::pack_weights; out (B, C_out, H, W). Hd is the hidden
+// width padded to 32 or 64; cluster, S (map stride in
+// floats) and kc (input channels per weight chunk) are the launch plan. The
+// kernel runs on `stream`; the return value is the launch's error, then
+// cudaGetLastError() (0 = launched).
+extern "C" int cmf_coupler_stack_fwd(const void* x, const void* frags, const void* small, void* out,
                                      int B, int C_in, int H, int W, int Hd, int num_blocks,
-                                     int C_out, void* stream) {
-  if (B < 1 || C_in < 1 || H < 1 || W < 1 || Hd < kOcTile || Hd % kOcTile != 0 ||
-      num_blocks < 0 || C_out < 1)
+                                     int C_out, int cluster, int S, int kc, void* stream) {
+  if (B < 1 || num_blocks < 0 || C_out < 1 || !plan_ok(C_in, H, W, Hd, cluster, S, kc))
     return (int)cudaErrorInvalidValue;
-  coupler_stack_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)weights, (float*)out, (float*)scratch, C_in, H, W, Hd,
-      num_blocks, C_out);
+  Args a{(const float*)x, (const float*)frags, (const float*)small, (float*)out,
+         C_in, H, W, Hd, num_blocks, C_out, cluster, S, kc};
+  const cudaError_t e = launch_any(a, B, smem_bytes(Hd, S, kc), (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of this plan the card can hold at once
+// (cudaOccupancyMaxActiveClusters), for the smoke run's report. Returns the
+// CUDA error, 0 on success.
+extern "C" int cmf_coupler_stack_max_clusters(int H, int W, int Hd, int cluster, int S, int kc, int* n) {
+  if (!plan_ok(1, H, W, Hd, cluster, S, kc)) return (int)cudaErrorInvalidValue;
+  return (int)max_clusters_any(Hd, tiles_per_warp(H, W, cluster), kc, cluster, smem_bytes(Hd, S, kc), n);
 }

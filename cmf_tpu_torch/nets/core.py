@@ -7,11 +7,12 @@ transposes (``interop.py``): dense ``w`` of shape (in, out) applied as
 
 ``ResNet.forward`` routes the whole coupler through the fused coupler-stack
 kernel (``ops/coupler_stack.py``) under ``torch.inference_mode()`` — the
-sampling path — and through ``F.conv2d`` otherwise. Inference mode, and not
-``torch.is_grad_enabled()``, is the gate: the Hutchinson solve's matvecs run
-without a graph but inside ``torch.func.jvp`` / ``vjp``, which need the conv
-module's derivative rules, and ``torch.func`` transforms turn inference mode
-off inside them.
+sampling path — where the kernel takes the shape
+(``coupler_kernel_available``), and through ``F.conv2d`` otherwise.
+Inference mode, and not ``torch.is_grad_enabled()``, is the gate: the
+Hutchinson solve's matvecs run without a graph but inside ``torch.func.jvp``
+/ ``vjp``, which need the conv module's derivative rules, and ``torch.func``
+transforms turn inference mode off inside them.
 """
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.coupler_stack import fused_resnet_coupler
+from ..ops.coupler_stack import coupler_kernel_available, fused_resnet_coupler
 
 
 def get_activation(name):
@@ -136,7 +137,13 @@ class ResNet(nn.Module):
         }
 
     def forward(self, x):
-        if torch.is_inference_mode_enabled() and not self.use_batchnorm and x.dtype == torch.float32:
+        if (
+            torch.is_inference_mode_enabled()
+            and not self.use_batchnorm
+            and x.dtype == torch.float32
+            and x.dim() == 4
+            and coupler_kernel_available(x.shape[1], self.c_hidden, *x.shape[2:])
+        ):
             return fused_resnet_coupler(x, self.kernel_params())
         out = self.conv_in(x)
         for block in self.blocks:

@@ -3,18 +3,28 @@ coupler_stack.py``) against the JAX package's ``fused_resnet_coupler`` in
 interpret mode and against JAX ``ResNet.apply``; the port's ``ResNet`` module
 against JAX; and the route ``ResNet.forward`` takes: the fused coupler under
 ``torch.inference_mode()`` (the sampling path), the conv modules elsewhere,
-inside ``torch.func.jvp`` above all. The CUDA kernel itself runs only on the
-card: ``chip_smoke.py`` holds it against this plain version there."""
+inside ``torch.func.jvp`` above all; the shape gate, the launch plan at every
+image coupler's shape, the TF32 rounding, the weight packing, and the
+kernel's 3×TF32 arithmetic emulated on the CPU. The CUDA kernel itself runs
+only on the card: ``chip_smoke.py`` holds it against this plain version
+there."""
+
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cmf_tpu.nets import ResNet as JaxResNet
 from cmf_tpu.ops.pallas.coupler_stack import fused_resnet_coupler as jax_fused_resnet_coupler
+from cmf_tpu_torch.config.config import get_config
+from cmf_tpu_torch.config.schemas import get_schema
+from cmf_tpu_torch.data.image import DATASET_SHAPES
 from cmf_tpu_torch.interop import variables_from_jax
+from cmf_tpu_torch.models import get_density
 from cmf_tpu_torch.nets import ResNet
 from cmf_tpu_torch.ops import coupler_stack as cs
 
@@ -105,20 +115,282 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     assert cs.LAUNCHES == 0
 
 
+def _unpack_fragments(frags, n, hidden_p, kc):
+    """W_hi, W_lo (n, O, I, 9) read out of ``frags`` lane by lane, as the
+    kernel's A-fragment loads read them: per conv, tap, chunk, k-step,
+    m-tile and hi/lo, lane 4·gid + tig holds W[o][k], W[o+8][k], W[o][k+4],
+    W[o+8][k+4] with o = 16·m + gid, k = tig."""
+    mt = hidden_p // 16
+    shape = (n, 9, hidden_p // kc, kc // 8, mt, 2, 32, 4)
+    c, tap, cb, ks, m, hl, lane, e = np.indices(shape).reshape(len(shape), -1)
+    gid, tig = lane >> 2, lane & 3
+    o = 16 * m + gid + 8 * (e & 1)
+    i = cb * kc + ks * 8 + tig + 4 * (e >> 1)
+    out = np.zeros((2, n, hidden_p, hidden_p, 9), np.float32)
+    out[hl, c, o, i, tap] = frags.reshape(-1)
+    return out[0], out[1]
+
+
 def test_pack_weights_layout():
-    """The kernel reads each 3×3 conv as [input][tap][output] and the 1×1
-    conv as [input][output], in the order of the ResNet's layers."""
-    _, _, port, _ = _pair(*GEOMETRIES[1], seed=5)
+    """``frags``: the 2K hidden×hidden convs split hi/lo TF32 in mma
+    fragment order, which sums back to the weights; ``small``: conv_in as
+    [input][tap][output], the biases, the 1×1 conv as [input][output] and
+    the head, hidden padded to 32 or 64."""
+    _, _, port, _ = _pair(*GEOMETRIES[1], seed=5)  # C_in 4, hidden 16 (32 padded), C_out 8, 3 blocks
+    hp = 32
     with torch.no_grad():
         params = port.kernel_params()
-        packed = cs.pack_weights(params, c_in=4, hidden=16, c_out=8, device=torch.device("cpu"))
-        w_in = params["conv_in"]["w"]  # (16, 4, 3, 3)
-        assert packed.numel() == sum(p.numel() for p in port.parameters())
-        # w_in[o=5, i=2, ky=1, kx=0] sits at [i=2][tap=3][o=5].
-        assert packed[(2 * 9 + 3) * 16 + 5] == w_in[5, 2, 1, 0]
-        w_out = params["conv_out"]["w"]  # (8, 16, 1, 1)
-        start = packed.numel() - 3 * 8 - 16 * 8
-        assert packed[start + 7 * 8 + 3] == w_out[3, 7, 0, 0]
+        frags, small = cs.pack_weights(params, c_in=4, hidden=16, c_out=8, device=torch.device("cpu"))
+    n = 2 * 3
+    assert frags.numel() == n * 9 * hp * hp * 2
+    w_hi, w_lo = _unpack_fragments(frags.numpy(), n, hp, 32)
+    w = np.stack([params["blocks"][k][c]["w"].detach().numpy() for k in range(3) for c in ("conv1", "conv2")])
+    w = w.reshape(n, 16, 16, 9)
+    np.testing.assert_array_equal(w_hi[:, :16, :16], cs.tf32_round(torch.from_numpy(w)).numpy())
+    np.testing.assert_allclose(w_hi[:, :16, :16] + w_lo[:, :16, :16], w, rtol=0,
+                               atol=2.0**-22 * np.abs(w).max())
+    # The first lane's a1 of block 0's conv1, tap 4, is W[o=8][i=0][ky=1][kx=1]:
+    # chunk (conv 0, tap 4) of 32 × 32 × 2 floats, k-step 0, m-tile 0, hi, lane 0.
+    first = 4 * 32 * hp * 2
+    assert frags[first + 1] == cs.tf32_round(params["blocks"][0]["conv1"]["w"][8, 0, 1, 1])
+    w_in = params["conv_in"]["w"]  # (16, 4, 3, 3)
+    assert small.numel() == 4 * 9 * hp + n * hp + hp * 8 + 3 * 8
+    # w_in[o=5, i=2, ky=1, kx=0] sits at [i=2][tap=3][o=5].
+    assert small[(2 * 9 + 3) * hp + 5] == w_in[5, 2, 1, 0]
+    # conv2's bias of block 1 is bias row 3.
+    assert small[4 * 9 * hp + 3 * hp + 7] == params["blocks"][1]["conv2"]["b"][7]
+    w_out = params["conv_out"]["w"]  # (8, 16, 1, 1)
+    start = small.numel() - 3 * 8 - hp * 8
+    assert small[start + 7 * 8 + 3] == w_out[3, 7, 0, 0]
+
+
+def test_pack_weights_pads_the_hidden_width():
+    """A hidden width below 32 (or between 32 and 64) gets zero weights and
+    biases for the padded channels."""
+    c_in, hidden, c_out = 3, 10, 4
+    net = ResNet(c_in, [hidden] * 2, c_out, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        frags, small = cs.pack_weights(net.kernel_params(), c_in, hidden, c_out, torch.device("cpu"))
+    hp = 32
+    w_hi, w_lo = _unpack_fragments(frags.numpy(), 4, hp, 32)
+    assert not w_hi[:, hidden:].any() and not w_hi[:, :, hidden:].any() and not w_lo[:, hidden:].any()
+    assert np.abs(w_hi[:, :hidden, :hidden]).max() > 0
+    w_in = small[: c_in * 9 * hp].reshape(c_in, 9, hp)
+    assert not w_in[:, :, hidden:].any()
+    bias = small[c_in * 9 * hp : c_in * 9 * hp + 4 * hp].reshape(4, hp)
+    assert not bias[:, hidden:].any() and bias[:, :hidden].abs().max() > 0
+
+
+def test_packed_weights_are_cached_until_a_tensor_changes():
+    """The wrapper packs a parameter set once and reuses it while the same
+    tensors stay unchanged; an in-place update or a freed module misses."""
+    dev = torch.device("cpu")
+
+    def pack(net):
+        with torch.no_grad():
+            return cs.packed_weights(net.kernel_params(), 2, 16, 4, dev, 32)
+
+    net = ResNet(2, [16] * 2, 4, generator=torch.Generator().manual_seed(0))
+    first = pack(net)
+    again = pack(net)
+    assert again is first
+    with torch.no_grad():
+        net.blocks[1].conv2.b.add_(1.0)
+    second = pack(net)
+    assert second is not first
+    np.testing.assert_array_equal(second[0].numpy(), first[0].numpy())  # the convs are unchanged
+    assert not torch.equal(second[1], first[1])  # the bias moved
+    with torch.no_grad():
+        want = cs.pack_weights(net.kernel_params(), 2, 16, 4, dev, 32)
+    assert all(torch.equal(a, b) for a, b in zip(second, want))
+    del net
+    gc.collect()
+    other = ResNet(2, [16], 4, generator=torch.Generator().manual_seed(1))
+    pack(other)
+    # The freed module's entry went with the next miss; the live one stays.
+    assert all(r() is not None for refs, _, _ in cs._PACKED.values() for r in refs)
+    assert pack(other) is pack(other)
+
+
+# cvt.rna.tf32.f32 on fp32 bit patterns: round to 10 mantissa bits, nearest,
+# ties away from zero (PTX ISA, cvt).
+TF32_PATTERNS = [
+    (0x3F800000, 0x3F800000),  # 1.0 is TF32
+    (0x3F800FFF, 0x3F800000),  # below half an ulp: down
+    (0x3F801000, 0x3F802000),  # a tie with an even kept bit: away from zero (not to even)
+    (0x3F803000, 0x3F804000),  # a tie with an odd kept bit: away from zero
+    (0xBF801000, 0xBF802000),  # a negative tie: away from zero
+    (0x3F801001, 0x3F802000),  # above half an ulp: up
+    (0x3FFFF000, 0x40000000),  # a carry into the exponent
+    (0x00000FFF, 0x00000000),  # subnormal below half an ulp
+    (0x00001000, 0x00002000),  # subnormal tie
+    (0x807FF000, 0x80800000),  # the largest subnormals round to the smallest normal
+    (0x00000000, 0x00000000),  # +0
+    (0x80000000, 0x80000000),  # -0
+    (0x7F800000, 0x7F800000),  # +inf
+    (0xFF800000, 0xFF800000),  # -inf
+    (0x7F7FF000, 0x7F800000),  # past the largest TF32: inf
+]
+
+
+@pytest.mark.parametrize("bits,want", TF32_PATTERNS, ids=[f"{b:08x}" for b, _ in TF32_PATTERNS])
+def test_tf32_round_matches_cvt_rna(bits, want):
+    x = torch.tensor([bits], dtype=torch.int64)
+    x = torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).view(torch.float32)
+    got = int(cs.tf32_round(x).view(torch.int32)[0]) & 0xFFFFFFFF
+    assert got == want, f"{bits:08x} -> {got:08x}, want {want:08x}"
+
+
+def test_tf32_round_keeps_nan_and_matches_float64_rounding():
+    assert torch.isnan(cs.tf32_round(torch.tensor([float("nan")]))).all()
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=4096) * 10.0 ** rng.integers(-30, 30, 4096)).astype(np.float32)
+    x64 = x.astype(np.float64)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(x64))) - 10)
+    want = np.sign(x64) * np.floor(np.abs(x64) / ulp + 0.5) * ulp
+    got = cs.tf32_round(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.astype(np.float64), want)
+    hi, lo = cs.split_tf32(torch.from_numpy(x))
+    np.testing.assert_array_equal(cs.tf32_round(lo).numpy(), lo.numpy())
+    np.testing.assert_allclose((hi.double() + lo.double()).numpy(), x64, rtol=2.0**-21, atol=0)
+
+
+def _emulate_kernel(x, params, c_in, hidden, c_out, kc=32):
+    """The kernel's arithmetic on the CPU, from its packed buffers: conv_in
+    and the head in fp32, each hidden×hidden 3×3 conv in 3×TF32 —
+    Σ_tap W_lo·X_hi + W_hi·X_lo + W_hi·X_hi with X = relu of the map, split
+    as cvt.rna splits it, fp32 sums."""
+    hp = cs.padded_hidden(hidden)
+    n = 2 * len(params["blocks"])
+    frags, small = cs.pack_weights(params, c_in, hidden, c_out, torch.device("cpu"), kc)
+    w_hi, w_lo = (torch.from_numpy(w) for w in _unpack_fragments(frags.numpy(), n, hp, kc))
+    w_in = small[: c_in * 9 * hp].reshape(c_in, 9, hp).permute(2, 0, 1).reshape(hp, c_in, 3, 3)
+    rest = small[c_in * 9 * hp :]
+    bias, rest = rest[: n * hp].reshape(n, hp), rest[n * hp :]
+    w_out, rest = rest[: hp * c_out].reshape(hp, c_out), rest[hp * c_out :]
+    b_out, head_w, head_b = rest.reshape(3, c_out)
+    height, width = x.shape[-2:]
+
+    def taps(m):
+        padded = F.pad(m, (1, 1, 1, 1))
+        return [padded[:, :, ky : ky + height, kx : kx + width] for ky in range(3) for kx in range(3)]
+
+    h = cs._conv3x3_taps(x, w_in)
+    for k in range(n // 2):
+        for c in (2 * k, 2 * k + 1):
+            src = torch.relu(h if c % 2 == 0 else t)
+            acc = 0
+            for tap, xs in enumerate(taps(src)):
+                x_hi, x_lo = cs.split_tf32(xs)
+                for a, b in ((w_lo, x_hi), (w_hi, x_lo), (w_hi, x_hi)):
+                    acc = acc + torch.einsum("oi,bihw->bohw", a[c, :, :, tap], b)
+            out = acc + bias[c][None, :, None, None]
+            if c % 2 == 0:
+                t = out
+            else:
+                h = h + out
+    y = torch.einsum("io,bihw->bohw", w_out, torch.relu(h)) + b_out[None, :, None, None]
+    return head_w[None, :, None, None] * torch.tanh(y) + head_b[None, :, None, None]
+
+
+# chip_smoke.py's COUPLER_TOL: the kernel against its plain version, max
+# |err| / max |ref|.
+COUPLER_TOL = 1e-4
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=IDS)
+def test_3xtf32_emulation_matches_plain(geometry):
+    """3×TF32 on the kernel's packed weights stays within the kernel's
+    tolerance of the fp32 plain version at hidden 16, with weights drawn as
+    chip_smoke.py draws them; single-pass TF32 on the same data does not
+    come as close."""
+    c_in, c_out, hw, blocks, batch = geometry
+    gen = torch.Generator().manual_seed(7)
+    net = ResNet(c_in, [16] * blocks, c_out, generator=gen)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        x = torch.randn((batch, c_in, hw, hw), generator=gen)
+        params = net.kernel_params()
+        ref = cs.coupler_stack_plain(x, params)
+        got = _emulate_kernel(x, params, c_in, 16, c_out)
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert err <= COUPLER_TOL, err
+        single = {
+            "conv_in": params["conv_in"],
+            "blocks": [{c: {"w": cs.tf32_round(bp[c]["w"]), "b": bp[c]["b"]} for c in bp}
+                       for bp in params["blocks"]],
+            **{k: params[k] for k in ("conv_out", "head_w", "head_b")},
+        }
+        one_pass = cs.coupler_stack_plain(x, single)
+        assert float((one_pass - ref).abs().max()) > 10 * float((got - ref).abs().max())
+
+
+def _image_couplers(dataset):
+    """(C_in, hidden, H, W) of every ResNet coupler the factory builds for
+    the dataset at full width: the non-square schema, and the realnvp
+    schema (baseline, 8 blocks) with its ResNets built batchnorm-free — the
+    port builds no batch-norm ResNet, and the kernel route takes none."""
+    c, h, w = DATASET_SHAPES[dataset][:3]
+    shapes = set()
+    for model, baseline, overrides in (("non-square", False, {}),
+                                       ("realnvp", True, {"resnet_batchnorm": False})):
+        config = {**get_config(dataset, model, baseline), **overrides}
+        density = get_density(get_schema(config), (c, h, w), "cpu", torch.Generator().manual_seed(0))
+        for m in density.modules():
+            if hasattr(m, "coupler") and hasattr(m, "x_shape"):
+                for net in m.coupler.modules():
+                    if isinstance(net, ResNet):
+                        shapes.add((net.conv_in.w.shape[1], net.c_hidden, *m.x_shape[1:]))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("dataset", sorted(DATASET_SHAPES))
+def test_launch_plan_covers_every_image_coupler(dataset):
+    """Every coupler shape of the six image datasets has a plan at the
+    batches the port calls it with: its bands tile the image rows exactly,
+    its shared memory fits 232,448 B, its cluster is legal, its map stride
+    holds a band with its halos and avoids bank conflicts."""
+    couplers = _image_couplers(dataset)
+    assert len(couplers) == 2, couplers  # full-size and squeezed
+    for c_in, hidden, h, w in couplers:
+        assert cs.coupler_kernel_available(c_in, hidden, h, w), (dataset, c_in, hidden, h, w)
+        for batch in (1, 8, 50, 64, 250):
+            plan = cs.plan_launch(batch, c_in, hidden, h, w)
+            bands = plan.bands(h)
+            assert bands[0][0] == 0 and sum(r for _, r in bands) == h
+            assert all(a + r == b for (a, r), (b, _) in zip(bands, bands[1:]))
+            assert min(r for _, r in bands) >= 1 and max(r for _, r in bands) == plan.rows
+            assert plan.rows * w <= cs.MAX_BAND_PIXELS
+            assert 1 <= plan.cluster <= min(16, h)
+            assert plan.stride >= (plan.rows + 2) * (w + 1) + 1 and plan.stride % 32 in (8, 24)
+            assert plan.hidden in (32, 64) and plan.hidden >= hidden and plan.kc in (16, 32)
+            assert 1 <= plan.tiles <= 4 and plan.tiles * 8 * 8 >= plan.rows * w
+            assert plan.smem_bytes == cs.smem_bytes(plan.hidden, plan.stride, plan.kc)
+            assert plan.smem_bytes <= 232_448
+
+
+def test_gate_sends_what_the_kernel_cannot_take_to_the_conv_modules():
+    """Shapes outside the kernel — hidden above 64, C_in above the padded
+    hidden width, rows wider than a band — take F.conv2d even under
+    inference mode; the wrapper has no plan for them."""
+    assert cs.coupler_kernel_available(1, 64, 28, 28)
+    assert cs.coupler_kernel_available(12, 8, 7, 7)  # hidden 8 pads to 32 ≥ C_in
+    assert not cs.coupler_kernel_available(1, 80, 28, 28)
+    assert not cs.coupler_kernel_available(33, 16, 8, 8)
+    assert not cs.coupler_kernel_available(1, 16, 4, 300)
+    with pytest.raises(ValueError, match="no launch plan"):
+        cs.plan_launch(1, 1, 80, 28, 28)
+    # A band is at most 256 pixels: 28-pixel rows take 4 CTAs or more.
+    assert min(p.cluster for p in cs._plans(1, 64, 28, 28)) == 4
+    net = ResNet(33, [16], 2, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 33, 8, 8)
+    cs.reset_launch_counts()
+    with torch.inference_mode():
+        got = net(x)
+    assert cs.CALLS == 0
+    with torch.no_grad():
+        np.testing.assert_array_equal(got.numpy(), net(x).numpy())
 
 
 def test_flops_of_the_mnist_couplers():

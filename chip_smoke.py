@@ -10,7 +10,9 @@ Phases, each of which fails the run on its own failure:
                   process per source, all at once.
 3. kernels     -- each kernel against its plain PyTorch version on the card,
                   at the main-path shapes and edge shapes; a rank-deficient
-                  input must give a non-finite log-det; times of the kernel,
+                  input must give a non-finite log-det; the Gram/log-det
+                  backward on a batch that mixes NaN factors (ḡ_ld = 0) with
+                  finite ones must stay finite; times of the kernel,
                   the plain version and a library yardstick, and the bound
                   (for the coupler kernel both its 3xTF32 tensor-core bound
                   and the fp32-pipe bound, its launch plan, and cuDNN with
@@ -40,7 +42,10 @@ import time
 
 # Main-path shape of the kernels: latent d, batch B, ambient D (miniboone).
 MAIN_SHAPE = (21, 400, 43)
-EDGE_SHAPES = [(1, 400, 43), (32, 400, 128), (21, 1, 43)]
+# Edges: d=1; the gate's corner (the backward's block opts in to over 48 KB
+# of shared memory); B=1; and a B that is no multiple of the backward's
+# warps a block (a tail warp).
+EDGE_SHAPES = [(1, 400, 43), (32, 400, 128), (21, 1, 43), (21, 401, 43)]
 # fp32 kernels against fp32 torch ops that sum in another order: error over
 # the reference's largest magnitude (at least 1).
 FWD_TOL = 1e-4
@@ -181,6 +186,25 @@ def phase_build():
     for name in KERNEL_SOURCES:
         for line in ptxas_report(cuda_build.BUILD_LOGS.get(name, "")):
             print(f"[build]   {name}: {line}")
+    for d, b, big_d in [MAIN_SHAPE] + EDGE_SHAPES:
+        warps, smem = bwd_geometry(d, big_d)
+        print(f"[build]   gram_logdet: gram_logdet_bwd_kernel<{-(-big_d // 32)}> at d,B,D={(d, b, big_d)}: "
+              f"{warps} warps a block, {-(-b // warps)} blocks, {smem} B dynamic shared memory a block")
+
+
+def bwd_geometry(d, big_d):
+    """(warps a block, dynamic shared bytes a block) of the backward kernel at
+    (d, D), as its C entry launches it."""
+    import ctypes
+
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    fn = gl._lib().cmf_gram_logdet_bwd_geometry
+    fn.argtypes, fn.restype = [i, i, pi, pi], None
+    w, smem = i(), i()
+    fn(d, big_d, ctypes.byref(w), ctypes.byref(smem))
+    return w.value, smem.value
 
 
 def ptxas_report(log):
@@ -259,11 +283,33 @@ def phase_kernels():
     _, _, l_k = gl.gram_logdet_fwd_cuda(j)
     gbar = torch.randn((b, d, d), device=dev, generator=gen)
     ldbar = torch.randn((b,), device=dev, generator=gen)
-    dj_k = gl.gram_logdet_bwd_cuda(j, l_k, gbar, ldbar)
+    # The kernel reads only L's lower triangle: NaN above it changes nothing.
+    iu = torch.triu_indices(d, d, 1, device=dev)
+    l_up = l_k.clone()
+    l_up[:, iu[0], iu[1]] = float("nan")
+    dj_k = gl.gram_logdet_bwd_cuda(j, l_up, gbar, ldbar)
     dj_p = gl.gram_logdet_bwd_plain(j, l_k, gbar, ldbar)
     direct = rel_err(dj_k, dj_p)
-    print(f"[kernels] bwd kernel vs plain dJ formula at {MAIN_SHAPE}: max rel err {direct:.3e} (tol {BWD_TOL:g})")
+    print(f"[kernels] bwd kernel (NaN above L's diagonal) vs plain dJ formula at {MAIN_SHAPE}: "
+          f"max rel err {direct:.3e} (tol {BWD_TOL:g})")
     assert direct <= BWD_TOL, "backward kernel disagrees with the plain dJ formula"
+
+    # The fallback case beside the normal one in one batch: every third
+    # element has a NaN factor and ḡ_ld = 0, the rest a finite factor and
+    # ḡ_ld ≠ 0. The gradient must be finite where ḡ_ld = 0 and equal the
+    # plain version everywhere.
+    bad = torch.arange(b, device=dev) % 3 == 0
+    l_mix = l_k.clone()
+    l_mix[bad] = float("nan")
+    ld_mix = torch.where(bad, torch.zeros_like(ldbar), ldbar)
+    dj_k = gl.gram_logdet_bwd_cuda(j, l_mix, gbar, ld_mix)
+    dj_p = gl.gram_logdet_bwd_plain(j, l_mix, gbar, ld_mix)
+    mixed = rel_err(dj_k, dj_p)
+    finite = bool(torch.isfinite(dj_k).all())
+    print(f"[kernels] bwd kernel, mixed batch ({int(bad.sum())} of {b} elements with a NaN factor and "
+          f"ḡ_ld = 0): all finite {finite}; max rel err vs plain {mixed:.3e} (tol {BWD_TOL:g})")
+    assert finite, "backward kernel: a NaN factor with ḡ_ld = 0 made the gradient non-finite"
+    assert mixed <= BWD_TOL, "backward kernel disagrees with the plain version on the mixed batch"
 
     # Rank-deficient Jacobian (rank 2 < d): the log-det must not be finite.
     base = cols(2, 64, big_d)
@@ -322,6 +368,14 @@ def phase_kernels():
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         })
+
+    # A quarter of the batch: one warp an element leaves the card's 528
+    # schedulers under-filled either way, so a warp's latency sets the time.
+    b4 = b // 4
+    j4, l4, g4, ld4 = j[:, :b4].contiguous(), l_k[:b4].contiguous(), gbar[:b4].contiguous(), ldbar[:b4]
+    dev4 = profiled_device_ms(lambda: gl.gram_logdet_bwd_cuda(j4, l4, g4, ld4), "gram_logdet_bwd_kernel")
+    dev4_txt = "not measured" if dev4 is None else f"{dev4:.6f} ms"
+    print(f"[kernels] gram_logdet_bwd at d,B,D={(d, b4, big_d)}: kernel device time {dev4_txt}")
     return kernels
 
 

@@ -11,13 +11,14 @@
 //             A non-PD Gram gives a NaN / -inf log-det, never a clamp, so the
 //             caller's jitter-retry fallback still triggers.
 //   backward: dJ[i] = Σ_j (Ḡ[i,j] + Ḡ[j,i] + 2·ḡ_ld·G⁻¹[i,j]) · J[j],
-//             with G⁻¹ = XᵀX rebuilt from the saved L by forward
-//             substitution (X = L⁻¹). Where ḡ_ld is 0 the G⁻¹ term is skipped:
-//             it contributes nothing, and a NaN factor (the fallback case)
-//             must not turn the Ḡ-only gradient into NaN.
+//             computed as M·J + 2·ḡ_ld·Z with M = Ḡ + Ḡᵀ and Z = G⁻¹J
+//             = L⁻ᵀ(L⁻¹J) by two triangular solves on the saved L, without
+//             forming G⁻¹. Where ḡ_ld is 0 the solves are skipped: the term
+//             contributes nothing, and a NaN factor (the fallback case) must
+//             not turn the Ḡ-only gradient into NaN.
 //
-// Design. The TPU kernel puts 128 batch elements on the VPU lanes and unrolls
-// ~d³/6 vector ops at trace time. Here one thread block owns one batch
+// Forward design. The TPU kernel puts 128 batch elements on the VPU lanes and
+// unrolls ~d³/6 vector ops at trace time. Here one thread block owns one batch
 // element (B = 400 blocks over 132 SMs at the main-path shape): its J slice
 // (d×D ≤ 32×128 fp32 = 16 KB) is staged in shared memory, the d(d+1)/2 Gram
 // dot products are shared out over 128 threads, and the factorisation runs
@@ -29,9 +30,36 @@
 // 3.35 TB/s; the backward moves ~4.3 MB, ~1.3 µs. The arithmetic (a few
 // MFLOP) is far below the fp32 peak. At these sizes launch latency and the
 // serial column loop dominate; this first version aims to be right.
+//
+// Backward design (the TPU kernel rebuilt G⁻¹ = L⁻ᵀL⁻¹ by unrolled vector ops
+// over 128 lane-resident batch elements, then one d×d by d×D product). Here
+// one warp owns one batch element, four warps a block, and the only
+// synchronisation is one __syncwarp() after the loads. Lane k owns the
+// columns k, k+32, …: each column's two solves and its M·J sums are private
+// to one lane, L and M are shared-memory broadcasts, and every global load
+// and store of a J row is contiguous. The warp's tiles live in dynamic
+// shared memory, zero-padded to dp = d rounded up to 4 rows: J and a work
+// tile W column-major (a lane's column is contiguous), T (L below the
+// diagonal, Lᵀ above it, 1/L[i][i] on it), M = Ḡ + Ḡᵀ and Ḡᵀ; 17.7 KB a warp
+// at the main path, 50.7 KB at the gate's edge (d=32, D=128), so a block
+// opts in above 48 KB. cp.async brings everything in at once, the
+// transposes and the zero pads included. Then, four rows at a time, with
+// 16-byte shared loads that serve four rows of a column:
+//   1. Y = L⁻¹J into W (forward substitution): what the rows above the
+//      group contribute, then the 4×4 triangle in registers;
+//   2. from the bottom, Z = L⁻ᵀY in place on W (back substitution) in the
+//      same loops as the group's M·J sums, then dJ = M·J + 2·ḡ_ld·Z.
+// Why the bytes bound (1.3 µs) is out of reach: 400 warps are fewer than
+// the card's 528 schedulers, so nothing hides a warp's latency. A column's
+// solves are a chain of dependent steps (each group waits for the one
+// before), and every step waits on shared-memory loads, so the time is a
+// warp's latency and about the same at B=100 as at B=400 (chip_smoke.py
+// times both).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace {
 
@@ -104,70 +132,313 @@ gram_logdet_fwd_kernel(const float* __restrict__ jac, float* __restrict__ gram,
   if (tid == 0) logdet[b] = ld;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Backward launch geometry: kBwdWarps warps a block, one batch element a
+// warp, each warp's tiles in dynamic shared memory (above 48 KB a block after
+// the opt-in attribute). 1, 2 and 4 warps a block time the same on an H100:
+// a warp's latency sets the time (PERF.md).
+constexpr int kBwdWarps = 4;
+// Rows a lane carries at once through the solves and the M·J product.
+constexpr int R = 4;
+
+// The tiles' padded row count dp = d rounded up to R, and their stride S:
+// dp, or dp + 4 where dp/4 is even, so that S/4 is odd and a 16-byte load by
+// each lane of a quarter-warp, lanes S floats apart, meets 8 distinct bank
+// groups.
+__host__ __device__ constexpr int bwd_rows(int d) { return (d + R - 1) / R * R; }
+__host__ __device__ constexpr int bwd_stride(int d) {
+  return (bwd_rows(d) / 4) % 2 ? bwd_rows(d) : bwd_rows(d) + 4;
+}
+// Floats of one warp's tiles: J and W (D columns of dp), T, M and Ḡᵀ (dp
+// rows).
+__host__ __device__ constexpr int bwd_tile_floats(int d, int D) {
+  return (2 * D + 3 * bwd_rows(d)) * bwd_stride(d);
+}
+// Dynamic shared bytes of a block at (d, D).
+constexpr int bwd_smem_bytes(int d, int D) {
+  return kBwdWarps * bwd_tile_floats(d, D) * (int)sizeof(float);
+}
+static_assert(bwd_smem_bytes(kMaxD, kMaxAmb) <= 232448,
+              "the gate's largest block must fit the 227 KB a block can have");
+
+// A 4-byte copy from global memory to the shared-memory address `dst` that
+// does not wait for the load; with n = 0 it reads nothing and writes a zero.
+__device__ __forceinline__ void cp_async_f32(unsigned dst, const float* src, int n = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+
+// Wait for this thread's cp.async copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const float* smem, int off) {
+  return *reinterpret_cast<const float4*>(smem + off);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// One step of four m of the M·J sums of a group of R rows starting at the
+// shared offset Mi0: acc[c] += M[i0..i0+3][m..m+3]·J_c[m..m+3].
+template <int NC>
+__device__ __forceinline__ void mj_step(const float* smem, const int (&Jc)[NC], bool last_on,
+                                        int Mi0, int S, int m, float4 (&acc)[NC]) {
+  float4 x[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) x[c] = (c < NC - 1 || last_on) ? lds4(smem, Jc[c] + m) : float4{};
+  const float4 m0 = lds4(smem, Mi0 + m), m1 = lds4(smem, Mi0 + S + m);
+  const float4 m2 = lds4(smem, Mi0 + 2 * S + m), m3 = lds4(smem, Mi0 + 3 * S + m);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    acc[c].x = dot4(m0, x[c], acc[c].x);
+    acc[c].y = dot4(m1, x[c], acc[c].y);
+    acc[c].z = dot4(m2, x[c], acc[c].z);
+    acc[c].w = dot4(m3, x[c], acc[c].w);
+  }
+}
+
+// Rows i0..i0+3 (those below d) of dJ for the lane's columns: each row is D
+// contiguous floats of the (d, B, D) output.
+template <int NC>
+__device__ __forceinline__ void store_rows(float* djac, const float4 (&acc)[NC], bool last_on,
+                                           int lane, int b, int B, int D, int d, int i0) {
+  const size_t row = (size_t)B * D;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c == NC - 1 && !last_on) continue;
+    float* out = djac + i0 * row + (size_t)b * D + lane + 32 * c;
+    out[0] = acc[c].x;
+    if (i0 + 1 < d) out[row] = acc[c].y;
+    if (i0 + 2 < d) out[2 * row] = acc[c].z;
+    if (i0 + 3 < d) out[3 * row] = acc[c].w;
+  }
+}
+
+// NC = ceil(D / 32): the columns each lane owns, k = lane + 32·c. Tiles are
+// reached as smem[offset], never through a pointer: a generic pointer into
+// shared memory costs an address conversion at every load.
+template <int NC>
+__global__ void __launch_bounds__(kBwdWarps * 32)
 gram_logdet_bwd_kernel(const float* __restrict__ jac, const float* __restrict__ chol,
                        const float* __restrict__ gbar, const float* __restrict__ ldbar,
                        float* __restrict__ djac, int d, int B, int D) {
-  __shared__ float J[kMaxD * kMaxAmb];
-  __shared__ float L[kMaxD * kPad];
-  __shared__ float X[kMaxD * kPad];
-  __shared__ float M[kMaxD * kPad];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // a tail warp leaves before any __syncwarp
+  // The tiles, padded with zeros to dp rows. J and W hold column k of the
+  // element at k·S, so a lane walks its own columns at unit stride, four
+  // rows a load. T holds L strictly below the diagonal, Lᵀ strictly above it
+  // and 1/L[i][i] on it: row i of T is what row i of either solve reads.
+  const int dp = bwd_rows(d), S = bwd_stride(d);
+  const int J = warp * bwd_tile_floats(d, D);
+  const int W = J + D * S;
+  const int T = W + D * S;
+  const int M = T + dp * S;
+  const int GT = M + dp * S;
   const float g_ld = ldbar[b];
+  const bool solve = g_ld != 0.f;  // the same for every lane of the warp
   const float* lb = chol + (size_t)b * d * d;
   const float* gbb = gbar + (size_t)b * d * d;
 
-  // 1. Load J, L and M = Ḡ + Ḡᵀ.
-  for (int q = tid; q < d * D; q += blockDim.x) {
-    const int i = q / D, k = q - i * D;
-    J[i * D + k] = jac[((size_t)i * B + b) * D + k];
-  }
-  for (int q = tid; q < d * d; q += blockDim.x) {
-    const int i = q / d, j = q - i * d;
-    L[i * kPad + j] = lb[q];
-    M[i * kPad + j] = gbb[q] + gbb[j * d + i];
-  }
-  __syncthreads();
-
-  if (g_ld != 0.f) {  // the same for every thread of the block
-    // 2. X = L⁻¹ by forward substitution: rows in turn, columns in parallel.
-    //    X[i][j] = -(Σ_{k=j}^{i-1} L[i][k]·X[k][j]) / L[i][i], X[i][i] = 1/L[i][i].
-    for (int i = 0; i < d; ++i) {
-      if (tid <= i) {
-        const int j = tid;
-        float t = 1.f;
-        if (j < i) {
-          t = 0.f;
-          for (int k = j; k < i; ++k) t -= L[i * kPad + k] * X[k * kPad + j];
-        }
-        X[i * kPad + j] = t * (1.f / L[i * kPad + i]);
+  // 1. Copy J (each row D contiguous floats), Ḡ and Ḡᵀ, and, where the
+  //    solves run, the lower triangle of L (the upper one is never read) into
+  //    T both as it is and transposed, with cp.async, so that all of a
+  //    lane's loads are in flight at once. Rows and columns past d are
+  //    zero-filled by the same copies.
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  for (int i = 0; i < dp; ++i) {
+    const bool row = i < d;
+    const float* src = jac + ((size_t)(row ? i : 0) * B + b) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int k = lane + 32 * c;
+      if (k < D) {
+        cp_async_f32(sbase + 4u * (J + k * S + i), src + k, row ? 4 : 0);
+        if (!row) smem[W + k * S + i] = 0.f;
       }
-      __syncthreads();
     }
-    // 3. M += 2·ḡ_ld·G⁻¹, G⁻¹[i][j] = Σ_{k ≥ max(i,j)} X[k][i]·X[k][j].
-    //    (The upper triangle of X is never written and never read.)
-    const float two_g = 2.f * g_ld;
-    for (int q = tid; q < d * d; q += blockDim.x) {
-      const int i = q / d, j = q - i * d;
-      float acc = 0.f;
-      for (int k = (i > j ? i : j); k < d; ++k) acc += X[k * kPad + i] * X[k * kPad + j];
-      M[i * kPad + j] += two_g * acc;
+    if (lane < dp) {
+      const bool in = row && lane < d;
+      const float* g = gbb + (in ? i * d + lane : 0);
+      cp_async_f32(sbase + 4u * (M + i * S + lane), g, in ? 4 : 0);
+      cp_async_f32(sbase + 4u * (GT + lane * S + i), g, in ? 4 : 0);
+      if (solve) {
+        // T[i][j] above the diagonal comes from the transposed copy of row j.
+        const float* l = lb + (in ? i * d + lane : 0);
+        if (!in || lane <= i) cp_async_f32(sbase + 4u * (T + i * S + lane), l, in ? 4 : 0);
+        if (in && lane < i) cp_async_f32(sbase + 4u * (T + lane * S + i), l);
+      }
     }
-    __syncthreads();
   }
+  cp_async_wait_all();
+  __syncwarp();
+  // 2. M = Ḡ + Ḡᵀ, lane j over column j, R rows a step (all loads before
+  //    the stores); 1/L[j][j] on T's diagonal.
+  if (lane < d) {
+    const int j = lane;
+    for (int i0 = 0; i0 < d; i0 += R) {
+      float g[R], gt[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        g[r] = smem[M + (i0 + r) * S + j];
+        gt[r] = smem[GT + (i0 + r) * S + j];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) smem[M + (i0 + r) * S + j] = g[r] + gt[r];
+    }
+    if (solve) smem[T + j * S + j] = 1.f / smem[T + j * S + j];
+  }
+  __syncwarp();
 
-  // 4. dJ[i, b, :] = Σ_j M[i][j]·J[j, :], parallel over (i, D).
-  for (int q = tid; q < d * D; q += blockDim.x) {
-    const int i = q / D, k = q - i * D;
-    float acc = 0.f;
-    for (int j = 0; j < d; ++j) acc = fmaf(M[i * kPad + j], J[j * D + k], acc);
-    djac[((size_t)i * B + b) * D + k] = acc;
+  // From here each lane reads and writes only its own columns of J and W;
+  // only the last of its NC columns can lie past D. Every row range is a
+  // whole number of R-row groups: the zero pads stand in for rows past d.
+  int Jc[NC], Wc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    Jc[c] = J + (lane + 32 * c) * S;
+    Wc[c] = W + (lane + 32 * c) * S;
   }
+  const bool last_on = lane + 32 * (NC - 1) < D;
+#define CMF_ON(c) ((c) < NC - 1 || last_on)
+  static_assert(R == 4, "the row groups are float4 loads");
+
+  if (solve) {
+    // 3. Y = L⁻¹J into W, R rows at a time: first what the rows above the
+    //    group contribute (independent sums that share each load of Y), then
+    //    the R×R triangle in registers.
+    for (int i0 = 0; i0 < dp; i0 += R) {
+      float4 acc[NC], tri[R];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[c] = CMF_ON(c) ? lds4(smem, Jc[c] + i0) : float4{};
+#pragma unroll
+      for (int r = 0; r < R; ++r) tri[r] = lds4(smem, T + (i0 + r) * S + i0);
+#pragma unroll 2
+      for (int m = 0; m < i0; m += 4) {
+        float4 y[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) y[c] = CMF_ON(c) ? lds4(smem, Wc[c] + m) : float4{};
+        const float4 l0 = lds4(smem, T + i0 * S + m), l1 = lds4(smem, T + (i0 + 1) * S + m);
+        const float4 l2 = lds4(smem, T + (i0 + 2) * S + m), l3 = lds4(smem, T + (i0 + 3) * S + m);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          acc[c].x = -dot4(l0, y[c], -acc[c].x);
+          acc[c].y = -dot4(l1, y[c], -acc[c].y);
+          acc[c].z = -dot4(l2, y[c], -acc[c].z);
+          acc[c].w = -dot4(l3, y[c], -acc[c].w);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float4& a = acc[c];
+        a.x *= tri[0].x;
+        a.y = (a.y - tri[1].x * a.x) * tri[1].y;
+        a.z = (a.z - tri[2].x * a.x - tri[2].y * a.y) * tri[2].z;
+        a.w = (a.w - tri[3].x * a.x - tri[3].y * a.y - tri[3].z * a.z) * tri[3].w;
+        if (CMF_ON(c)) *reinterpret_cast<float4*>(smem + Wc[c] + i0) = a;
+      }
+    }
+
+    // 4. Z = L⁻ᵀY in place on W, R rows at a time from the bottom: what the
+    //    rows below the group contribute, then the triangle in registers.
+    //    The group's rows of M·J are summed in the same loops, so that the
+    //    two sums' loads overlap, and dJ = M·J + 2·ḡ_ld·Z is written at once.
+    const float two_g = 2.f * g_ld;
+    for (int i0 = dp - R; i0 >= 0; i0 -= R) {
+      float4 z[NC], acc[NC], tri[R];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        z[c] = CMF_ON(c) ? lds4(smem, Wc[c] + i0) : float4{};
+        acc[c] = float4{};
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) tri[r] = lds4(smem, T + (i0 + r) * S + i0);
+#pragma unroll 2
+      for (int m = 0; m < i0 + R; m += 4) mj_step<NC>(smem, Jc, last_on, M + i0 * S, S, m, acc);
+#pragma unroll 2
+      for (int m = i0 + R; m < dp; m += 4) {
+        float4 y[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) y[c] = CMF_ON(c) ? lds4(smem, Wc[c] + m) : float4{};
+        // T's row i above the diagonal is column i of L: L[m][i].
+        const float4 l0 = lds4(smem, T + i0 * S + m), l1 = lds4(smem, T + (i0 + 1) * S + m);
+        const float4 l2 = lds4(smem, T + (i0 + 2) * S + m), l3 = lds4(smem, T + (i0 + 3) * S + m);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          z[c].x = -dot4(l0, y[c], -z[c].x);
+          z[c].y = -dot4(l1, y[c], -z[c].y);
+          z[c].z = -dot4(l2, y[c], -z[c].z);
+          z[c].w = -dot4(l3, y[c], -z[c].w);
+        }
+        mj_step<NC>(smem, Jc, last_on, M + i0 * S, S, m, acc);
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float4& a = z[c];
+        a.w *= tri[3].w;
+        a.z = (a.z - tri[2].w * a.w) * tri[2].z;
+        a.y = (a.y - tri[1].z * a.z - tri[1].w * a.w) * tri[1].y;
+        a.x = (a.x - tri[0].y * a.y - tri[0].z * a.z - tri[0].w * a.w) * tri[0].x;
+        if (CMF_ON(c)) *reinterpret_cast<float4*>(smem + Wc[c] + i0) = a;
+        acc[c] = float4{fmaf(two_g, a.x, acc[c].x), fmaf(two_g, a.y, acc[c].y),
+                        fmaf(two_g, a.z, acc[c].z), fmaf(two_g, a.w, acc[c].w)};
+      }
+      store_rows<NC>(djac, acc, last_on, lane, b, B, D, d, i0);
+    }
+  } else {
+    // 5. Without the solves, dJ = M·J alone, R rows at a time.
+    for (int i0 = 0; i0 < dp; i0 += R) {
+      float4 acc[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[c] = float4{};
+#pragma unroll 2
+      for (int m = 0; m < dp; m += 4) mj_step<NC>(smem, Jc, last_on, M + i0 * S, S, m, acc);
+      store_rows<NC>(djac, acc, last_on, lane, b, B, D, d, i0);
+    }
+  }
+#undef CMF_ON
 }
 
 bool shape_ok(int d, int B, int D) {
   return d >= 1 && d <= kMaxD && D >= 1 && D <= kMaxAmb && B >= 1;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The opt-in above 48 KB of dynamic shared memory is an attribute of the
+// function on the current device: it is set once a device, to the most the
+// instance can ask (d = kMaxD, D = 32·NC).
+template <int NC>
+int opt_in_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const bool known = dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_relaxed)) return 0;
+  err = cudaFuncSetAttribute(gram_logdet_bwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bwd_smem_bytes(kMaxD, 32 * NC));
+  if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_relaxed);
+  return (int)err;
+}
+
+template <int NC>
+int launch_bwd(const float* jac, const float* chol, const float* gbar, const float* ldbar,
+               float* djac, int d, int B, int D, cudaStream_t stream) {
+  const int smem = bwd_smem_bytes(d, D);
+  if (smem > 48 * 1024) {
+    const int err = opt_in_smem<NC>();
+    if (err != 0) return err;
+  }
+  const int blocks = (B + kBwdWarps - 1) / kBwdWarps;
+  gram_logdet_bwd_kernel<NC><<<blocks, kBwdWarps * 32, smem, stream>>>(jac, chol, gbar, ldbar,
+                                                                       djac, d, B, D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -188,8 +459,21 @@ extern "C" int cmf_gram_logdet_bwd(const void* jac, const void* chol, const void
                                    const void* ldbar, void* djac, int d, int B, int D,
                                    void* stream) {
   if (!shape_ok(d, B, D)) return (int)cudaErrorInvalidValue;
-  gram_logdet_bwd_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)jac, (const float*)chol, (const float*)gbar, (const float*)ldbar,
-      (float*)djac, d, B, D);
-  return (int)cudaGetLastError();
+  const float *j = (const float*)jac, *l = (const float*)chol;
+  const float *g = (const float*)gbar, *ld = (const float*)ldbar;
+  float* dj = (float*)djac;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((D + 31) / 32) {
+    case 1: return launch_bwd<1>(j, l, g, ld, dj, d, B, D, s);
+    case 2: return launch_bwd<2>(j, l, g, ld, dj, d, B, D, s);
+    case 3: return launch_bwd<3>(j, l, g, ld, dj, d, B, D, s);
+    default: return launch_bwd<4>(j, l, g, ld, dj, d, B, D, s);
+  }
+}
+
+// The backward's launch geometry at (d, D): warps a block and dynamic shared
+// bytes a block.
+extern "C" void cmf_gram_logdet_bwd_geometry(int d, int D, int* warps, int* smem_bytes) {
+  *warps = kBwdWarps;
+  *smem_bytes = bwd_smem_bytes(d, D);
 }

@@ -5,7 +5,9 @@ The two kernels are CUDA C++ for Hopper in ``csrc/gram_logdet.cu`` (the
 source says which TPU kernel each replaces and what bounds it). Beside them
 are their plain PyTorch versions: ``gram_logdet_plain`` (``gram_from_columns``
 + an un-jittered Cholesky log-det) and ``gram_logdet_bwd_plain`` (the same dJ
-formula in torch ops).
+formula in torch ops). ``gram_logdet_bwd_solves_emulated`` repeats the
+backward kernel's own algorithm (two triangular solves in place of G⁻¹) for
+the CPU tests; no path of the port calls it.
 
 ``fused_gram_logdet`` dispatches on the tensor's device only: on a CUDA
 tensor it launches the kernels or raises; on a CPU tensor it takes the plain
@@ -60,6 +62,30 @@ def gram_logdet_bwd_plain(jac_cols, L, gbar, ldbar):
     ld = ldbar[:, None, None]
     M = gbar + gbar.transpose(-1, -2) + torch.where(ld != 0, 2.0 * ld * ginv, torch.zeros_like(ginv))
     return torch.einsum("bij,jbD->ibD", M, jac_cols)
+
+
+def gram_logdet_bwd_solves_emulated(jac_cols, L, gbar, ldbar):
+    """The backward kernel's algorithm in fp32 torch ops, for the tests only:
+    dJ = M·J + 2·ḡ_ld·Z with M = Ḡ + Ḡᵀ and Z = L⁻ᵀ(L⁻¹J) by forward, then
+    back substitution, G⁻¹ never formed. Row by row here; the kernel takes
+    the rows four at a time, which changes only the order of the sums. Reads
+    only the lower triangle of L, and only where ḡ_ld ≠ 0 (the solves are
+    skipped elsewhere, so a NaN factor there leaves the gradient finite)."""
+    d = jac_cols.shape[0]
+    J = jac_cols.permute(1, 0, 2)  # (B, d, D)
+    out = (gbar + gbar.transpose(-1, -2)) @ J
+    solve = ldbar != 0
+    if bool(solve.any()):
+        Ls = L[solve]
+        W = J[solve].clone()
+        for i in range(d):  # Y[i] = L[i][i]⁻¹(J[i] − Σ_{m<i} L[i][m]·Y[m])
+            acc = W[:, i] - (Ls[:, i, :i, None] * W[:, :i]).sum(1)
+            W[:, i] = acc * (1.0 / Ls[:, i, i, None])
+        for i in reversed(range(d)):  # Z[i] = L[i][i]⁻¹(Y[i] − Σ_{m>i} L[m][i]·Z[m])
+            acc = W[:, i] - (Ls[:, i + 1 :, i, None] * W[:, i + 1 :]).sum(1)
+            W[:, i] = acc * (1.0 / Ls[:, i, i, None])
+        out[solve] = out[solve] + 2.0 * ldbar[solve, None, None] * W
+    return out.permute(1, 0, 2).contiguous()
 
 
 # ------------------------------------------------------------- CUDA kernels

@@ -87,6 +87,63 @@ def test_plain_bwd_formula_matches_jax_vjp():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
+def _bwd_inputs(shape, seed):
+    d, b, _ = shape
+    rng = np.random.default_rng(seed)
+    cols = rng.normal(size=shape).astype(np.float32)
+    gbar = rng.normal(size=(b, d, d)).astype(np.float32)
+    ldbar = rng.normal(size=(b,)).astype(np.float32)
+    return cols, gbar, ldbar
+
+
+def _upper_poisoned(L):
+    """L with NaN above the diagonal: the backward kernel reads only the
+    lower triangle."""
+    iu = torch.triu_indices(L.shape[-1], L.shape[-1], 1)
+    L = L.clone()
+    L[:, iu[0], iu[1]] = float("nan")
+    return L
+
+
+@pytest.mark.parametrize("shape", [(4, 30, 9), (1, 5, 7), (5, 1, 11), (8, 33, 40)])
+def test_bwd_solves_emulation_matches_plain_and_jax_vjp(shape):
+    """The backward kernel's algorithm (forward then back substitution, no
+    G⁻¹), emulated in torch ops, against the plain dJ formula and against the
+    Pallas backward kernel's VJP in interpret mode."""
+    cols, gbar, ldbar = _bwd_inputs(shape, seed=11 + sum(shape))
+    _, vjp = jax.vjp(lambda c: jax_fused(c, True), jnp.asarray(cols))
+    (want,) = vjp((jnp.asarray(gbar), jnp.asarray(ldbar)))
+    jt, gt, lt = (torch.as_tensor(a) for a in (cols, gbar, ldbar))
+    _, _, L = gl.gram_logdet_plain(jt)
+    got = gl.gram_logdet_bwd_solves_emulated(jt, _upper_poisoned(L), gt, lt)
+    plain = gl.gram_logdet_bwd_plain(jt, L, gt, lt)
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_bwd_solves_emulation_mixed_nan_factor_batch():
+    """Elements with a NaN factor and ḡ_ld = 0 (the fallback case) beside
+    elements with a finite factor and ḡ_ld ≠ 0: the gradient is finite where
+    ḡ_ld = 0 and equals the plain version everywhere."""
+    shape = (6, 24, 13)
+    cols, gbar, ldbar = _bwd_inputs(shape, seed=5)
+    jt, gt, lt = (torch.as_tensor(a) for a in (cols, gbar, ldbar))
+    _, _, L = gl.gram_logdet_plain(jt)
+    bad = torch.arange(shape[1]) % 3 == 0
+    L = L.clone()
+    L[bad] = float("nan")
+    lt[bad] = 0.0
+    got = gl.gram_logdet_bwd_solves_emulated(jt, _upper_poisoned(L), gt, lt)
+    plain = gl.gram_logdet_bwd_plain(jt, L, gt, lt)
+    assert torch.isfinite(got[:, bad]).all()
+    assert torch.isfinite(plain).all()
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
+    # Where ḡ_ld = 0 the gradient is the Ḡ term alone.
+    gbar_only = torch.einsum("bij,jbD->ibD", gt + gt.transpose(-1, -2), jt)
+    np.testing.assert_allclose(got[:, bad].numpy(), gbar_only[:, bad].numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
 def test_nan_on_rank_deficient():
     """A rank-deficient Jacobian gives a non-finite log-det (no exception),
     as the Pallas kernel does, so the caller's jitter fallback fires."""

@@ -7,16 +7,21 @@ Phases, each of which fails the run on its own failure:
 
 1. device      -- the card's name and power limit; TF32 off.
 2. build       -- nvcc builds ``cmf_tpu_torch/csrc/*.cu`` for sm_90a, one
-                  process per source, all at once.
+                  process per source, all at once; each kernel's ptxas line
+                  and the Gram/log-det kernels' launch geometry.
 3. kernels     -- each kernel against its plain PyTorch version on the card,
                   at the main-path shapes and edge shapes; a rank-deficient
                   input must give a non-finite log-det; the Gram/log-det
-                  backward on a batch that mixes NaN factors (ḡ_ld = 0) with
-                  finite ones must stay finite; times of the kernel,
-                  the plain version and a library yardstick, and the bound
-                  (for the coupler kernel both its 3xTF32 tensor-core bound
-                  and the fp32-pipe bound, its launch plan, and cuDNN with
-                  TF32 as an aside in other numerics).
+                  forward on a batch that mixes rank-2 Jacobians with
+                  full-rank ones must give non-finite log-dets on the same
+                  elements as its plain version; the backward on a batch
+                  that mixes NaN factors (ḡ_ld = 0) with finite ones must
+                  stay finite; the Gram/log-det kernels' device times at a
+                  quarter of the batch; times of the kernel, the plain
+                  version and a library yardstick, and the bound (for the
+                  coupler kernel both its 3xTF32 tensor-core bound and the
+                  fp32-pipe bound, its launch plan, and cuDNN with TF32 as
+                  an aside in other numerics).
 4. train       -- the port's CLI trains miniboone non-square at full width
                   with the likelihood on from step 1; the Gram/log-det
                   kernels' launch counts must equal the likelihood steps; then
@@ -187,24 +192,28 @@ def phase_build():
         for line in ptxas_report(cuda_build.BUILD_LOGS.get(name, "")):
             print(f"[build]   {name}: {line}")
     for d, b, big_d in [MAIN_SHAPE] + EDGE_SHAPES:
-        warps, smem = bwd_geometry(d, big_d)
+        warps, fwd_smem, bwd_smem = gram_logdet_geometry(d, big_d)
+        blocks = -(-b // warps)
+        print(f"[build]   gram_logdet: gram_logdet_fwd_kernel at d,B,D={(d, b, big_d)}: {warps} warps a block, "
+              f"{blocks} blocks, {fwd_smem} B dynamic shared memory a block")
         print(f"[build]   gram_logdet: gram_logdet_bwd_kernel<{-(-big_d // 32)}> at d,B,D={(d, b, big_d)}: "
-              f"{warps} warps a block, {-(-b // warps)} blocks, {smem} B dynamic shared memory a block")
+              f"{warps} warps a block, {blocks} blocks, {bwd_smem} B dynamic shared memory a block")
 
 
-def bwd_geometry(d, big_d):
-    """(warps a block, dynamic shared bytes a block) of the backward kernel at
-    (d, D), as its C entry launches it."""
+def gram_logdet_geometry(d, big_d):
+    """(warps a block, the forward's and the backward's dynamic shared bytes
+    a block) of the Gram/log-det kernels at (d, D), as their C entries
+    launch them."""
     import ctypes
 
     from cmf_tpu_torch.ops import gram_logdet as gl
 
     i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    fn = gl._lib().cmf_gram_logdet_bwd_geometry
-    fn.argtypes, fn.restype = [i, i, pi, pi], None
-    w, smem = i(), i()
-    fn(d, big_d, ctypes.byref(w), ctypes.byref(smem))
-    return w.value, smem.value
+    fn = gl._lib().cmf_gram_logdet_geometry
+    fn.argtypes, fn.restype = [i, i, pi, pi, pi], None
+    w, fwd_smem, bwd_smem = i(), i(), i()
+    fn(d, big_d, ctypes.byref(w), ctypes.byref(fwd_smem), ctypes.byref(bwd_smem))
+    return w.value, fwd_smem.value, bwd_smem.value
 
 
 def ptxas_report(log):
@@ -319,6 +328,26 @@ def phase_kernels():
     print(f"[kernels] rank-deficient J (d=4, rank 2, B=64): {n_bad}/64 non-finite log-dets")
     assert n_bad > 0, "rank-deficient Jacobian gave an all-finite log-det"
 
+    # Non-PD elements beside PD ones in one batch: every third element gets
+    # a rank-2 J. The forward's non-finite log-dets must fall on the same
+    # elements as the plain version's, and the rest must agree.
+    j_mix = cols(d, b, big_d)
+    base = torch.randn((2, int(bad.sum()), big_d), device=dev, generator=gen)
+    coef = torch.randn((d, 2, int(bad.sum())), device=dev, generator=gen)
+    j_mix[:, bad] = torch.einsum("ice,ceD->ieD", coef, base)
+    g_k, ld_k, l_k = gl.gram_logdet_fwd_cuda(j_mix)
+    g_p, ld_p, l_p = gl.gram_logdet_plain(j_mix)
+    torch.cuda.synchronize()
+    nf_k, nf_p = ~torch.isfinite(ld_k), ~torch.isfinite(ld_p)
+    ok = ~nf_k & ~nf_p
+    mixed = max(rel_err(g_k, g_p), rel_err(ld_k[ok], ld_p[ok]), rel_err(l_k[ok], l_p[ok]))
+    same = bool((nf_k == nf_p).all())
+    print(f"[kernels] fwd kernel, mixed batch ({int(bad.sum())} of {b} elements with a rank-2 J): "
+          f"{int(nf_k.sum())} non-finite log-dets (plain {int(nf_p.sum())}), same elements {same}; "
+          f"max rel err vs plain on the rest {mixed:.3e} (tol {FWD_TOL:g})")
+    assert same, "forward kernel: non-finite log-dets on other elements than the plain version's"
+    assert mixed <= FWD_TOL, "forward kernel disagrees with the plain version on the mixed batch"
+
     # Times at the main-path shape. J (1.4 MB) stays in the 50 MB L2 between
     # calls, as it does in a training step right after the decode.
     j = cols(*MAIN_SHAPE)
@@ -373,9 +402,11 @@ def phase_kernels():
     # schedulers under-filled either way, so a warp's latency sets the time.
     b4 = b // 4
     j4, l4, g4, ld4 = j[:, :b4].contiguous(), l_k[:b4].contiguous(), gbar[:b4].contiguous(), ldbar[:b4]
-    dev4 = profiled_device_ms(lambda: gl.gram_logdet_bwd_cuda(j4, l4, g4, ld4), "gram_logdet_bwd_kernel")
-    dev4_txt = "not measured" if dev4 is None else f"{dev4:.6f} ms"
-    print(f"[kernels] gram_logdet_bwd at d,B,D={(d, b4, big_d)}: kernel device time {dev4_txt}")
+    for name, fn in (("gram_logdet_fwd", lambda: gl.gram_logdet_fwd_cuda(j4)),
+                     ("gram_logdet_bwd", lambda: gl.gram_logdet_bwd_cuda(j4, l4, g4, ld4))):
+        dev4 = profiled_device_ms(fn, f"{name}_kernel")
+        dev4_txt = "not measured" if dev4 is None else f"{dev4:.6f} ms"
+        print(f"[kernels] {name} at d,B,D={(d, b4, big_d)}: kernel device time {dev4_txt}")
     return kernels
 
 

@@ -5,9 +5,10 @@ The two kernels are CUDA C++ for Hopper in ``csrc/gram_logdet.cu`` (the
 source says which TPU kernel each replaces and what bounds it). Beside them
 are their plain PyTorch versions: ``gram_logdet_plain`` (``gram_from_columns``
 + an un-jittered Cholesky log-det) and ``gram_logdet_bwd_plain`` (the same dJ
-formula in torch ops). ``gram_logdet_bwd_solves_emulated`` repeats the
-backward kernel's own algorithm (two triangular solves in place of G⁻¹) for
-the CPU tests; no path of the port calls it.
+formula in torch ops). ``gram_logdet_fwd_panels_emulated`` and
+``gram_logdet_bwd_solves_emulated`` repeat the kernels' own algorithms (the
+Gram in one order and the factor in 4-column panels; two triangular solves
+in place of G⁻¹) for the CPU tests; no path of the port calls them.
 
 ``fused_gram_logdet`` dispatches on the tensor's device only: on a CUDA
 tensor it launches the kernels or raises; on a CPU tensor it takes the plain
@@ -62,6 +63,46 @@ def gram_logdet_bwd_plain(jac_cols, L, gbar, ldbar):
     ld = ldbar[:, None, None]
     M = gbar + gbar.transpose(-1, -2) + torch.where(ld != 0, 2.0 * ld * ginv, torch.zeros_like(ginv))
     return torch.einsum("bij,jbD->ibD", M, jac_cols)
+
+
+def gram_logdet_fwd_panels_emulated(jac_cols):
+    """The forward kernel's algorithm in fp32 torch ops, for the tests only:
+    (d, B, D) → (gram (B,d,d), logdet (B,), L (B,d,d)). The Gram is summed
+    over k in order; A = G padded to dp = d rounded up to 4, with 1 on the
+    pad diagonal; then Cholesky-Banachiewicz in 4-column panels: each row's
+    four panel entries less the columns left of the panel, then the panel's
+    4×4 triangle column by column, q = rsqrt(s), L[j][j] = s·q, L[i][j] = t·q.
+    The kernel fuses the multiply-adds, which changes only the rounding.
+    A pivot s ≤ 0 gives NaN or -inf, never a clamp."""
+    d, b, big_d = jac_cols.shape
+    dp = -(-d // 4) * 4
+    J = torch.zeros((b, dp, big_d), dtype=torch.float32, device=jac_cols.device)
+    J[:, :d] = jac_cols.permute(1, 0, 2)
+    G = torch.zeros((b, dp, dp), dtype=torch.float32, device=jac_cols.device)
+    for k in range(big_d):
+        G = G + J[:, :, k, None] * J[:, None, :, k]
+    A = G.clone()
+    pad = torch.arange(d, dp)
+    A[:, pad, pad] = 1.0
+    logdet = torch.zeros((b,), dtype=torch.float32, device=jac_cols.device)
+    for j0 in range(0, dp, 4):
+        a = A[:, j0:, j0 : j0 + 4].clone()  # rows j0.. of the panel's columns
+        for k in range(j0):
+            a = a - A[:, j0:, k, None] * A[:, None, j0 : j0 + 4, k]
+        panel = torch.zeros_like(a)
+        for c in range(4):
+            t = a[:, :, c]
+            for m in range(c):
+                t = t - panel[:, :, m] * panel[:, c : c + 1, m]
+            s = t[:, c]
+            q = torch.rsqrt(s)
+            logdet = logdet + torch.log(s)
+            col = t * q[:, None]
+            col[:, c] = s * q
+            col[:, :c] = 0.0
+            panel[:, :, c] = col
+        A[:, j0:, j0 : j0 + 4] = panel
+    return G[:, :d, :d], logdet, torch.tril(A[:, :d, :d])
 
 
 def gram_logdet_bwd_solves_emulated(jac_cols, L, gbar, ldbar):

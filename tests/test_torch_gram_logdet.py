@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from cmf_tpu.ops import cholesky_logdet, gram_from_columns
+from cmf_tpu.ops.pallas.gram_logdet import _fused_fwd_impl as jax_fused_fwd_impl
 from cmf_tpu.ops.pallas.gram_logdet import fused_gram_logdet as jax_fused
 from cmf_tpu_torch.ops import gram_logdet as gl
 
@@ -144,6 +145,51 @@ def test_bwd_solves_emulation_mixed_nan_factor_batch():
     np.testing.assert_allclose(got[:, bad].numpy(), gbar_only[:, bad].numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
+def _jax_kernel_fwd(cols):
+    """The Pallas forward kernel in interpret mode: (gram, logdet, L), with
+    L moved to (B, d, d)."""
+    gram, logdet, (_, l_t) = jax_fused_fwd_impl(jnp.asarray(cols), True)
+    b = cols.shape[1]
+    return np.asarray(gram), np.asarray(logdet), np.moveaxis(np.asarray(l_t)[:, :, :b], -1, 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 6, 7), (5, 20, 11), (9, 12, 17), (8, 10, 13), (5, 1, 9), (2, 9, 3)])
+def test_fwd_panels_emulation_matches_plain_and_jax_kernel(shape):
+    """The forward kernel's algorithm (the Gram in one order, the identity-
+    padded factor in 4-column panels), emulated in torch ops, against the
+    plain version and the Pallas forward kernel in interpret mode: d not a
+    multiple of 4 (1, 5, 9) and a multiple (8), B=1 and D < 4."""
+    cols = _cols(shape, seed=13 + sum(shape))
+    gram, ld, L = gl.gram_logdet_fwd_panels_emulated(torch.as_tensor(cols))
+    d, b, _ = shape
+    assert gram.shape == L.shape == (b, d, d) and ld.shape == (b,)
+    assert gram.dtype == ld.dtype == L.dtype == torch.float32
+    assert (torch.triu(L, 1) == 0).all()
+    plain = [t.numpy() for t in gl.gram_logdet_plain(torch.as_tensor(cols))]
+    for ref in (plain, _jax_kernel_fwd(cols)):
+        for got, want in zip((gram, ld, L), ref):
+            np.testing.assert_allclose(got.numpy(), want, rtol=VALUE_TOL, atol=VALUE_TOL)
+
+
+def test_fwd_panels_emulation_non_pd_batch():
+    """Every third element has a rank-deficient J (a zero row, at a row that
+    moves with the element), the others full rank: the log-det is
+    non-finite exactly where the Pallas kernel's is, and equal elsewhere."""
+    d, b, big_d = 6, 24, 9
+    cols = _cols((d, b, big_d), seed=17)
+    bad = np.arange(b) % 3 == 0
+    for e in np.flatnonzero(bad):
+        cols[e % d, e] = 0.0
+    _, ld, _ = gl.gram_logdet_fwd_panels_emulated(torch.as_tensor(cols))
+    _, ld_k, _ = _jax_kernel_fwd(cols)
+    _, ld_p, _ = gl.gram_logdet_plain(torch.as_tensor(cols))
+    ld = ld.numpy()
+    np.testing.assert_array_equal(~np.isfinite(ld), ~np.isfinite(ld_k))
+    np.testing.assert_array_equal(~np.isfinite(ld), bad)
+    np.testing.assert_array_equal(~np.isfinite(ld_p.numpy()), bad)
+    np.testing.assert_allclose(ld[~bad], ld_k[~bad], rtol=VALUE_TOL, atol=VALUE_TOL)
+
+
 def test_nan_on_rank_deficient():
     """A rank-deficient Jacobian gives a non-finite log-det (no exception),
     as the Pallas kernel does, so the caller's jitter fallback fires."""
@@ -183,3 +229,15 @@ def test_size_gate_is_the_jax_gate():
     assert gl.fused_gram_logdet_available(32, 128)
     assert not gl.fused_gram_logdet_available(33, 43)
     assert not gl.fused_gram_logdet_available(21, 129)
+
+
+def test_fwd_phases_tool_stamps_every_step():
+    """The phase probe of the forward kernel finds each of its anchors in the
+    kernel's source (it stops where a step moved) and stamps each step once."""
+    from cmf_tpu_torch.tools import gram_logdet_fwd_phases as phases
+
+    src = phases.stamped_source()
+    for p in range(6):
+        assert src.count(f"ST({p})") == 1
+    assert src.count("GT(6)") == src.count("GT(7)") == 1
+    assert "cmf_fwd_phases_read" in src

@@ -23,14 +23,30 @@ Phases, each of which fails the run on its own failure:
                   fp32-pipe bound, its launch plan, and cuDNN with TF32 as
                   an aside in other numerics).
 4. train       -- the port's CLI trains miniboone non-square at full width
-                  with the likelihood on from step 1; the Gram/log-det
-                  kernels' launch counts must equal the likelihood steps; then
-                  one step on the card against the same step on the CPU.
-5. train-mnist -- the CLI trains the mnist non-square model (Hutchinson + CG)
+                  with the likelihood on from step 1, one CUDA graph replay a
+                  step after the first; the Gram/log-det kernels' launch
+                  counts, counted on the device and so under replay, must
+                  equal the likelihood steps, one each a replay; step time and idle share of the captured and the
+                  eager route; then one step on the card against the same
+                  step on the CPU.
+5. captured    -- 10 captured steps against 10 eager steps of the same step
+                  function from the same weights on the same batches (losses
+                  and every parameter and Adam state tensor within 1e-6
+                  relative); one eager exact step under
+                  ``torch.cuda.set_sync_debug_mode("error")``; a NaN batch
+                  from step k on in a captured epoch must freeze the state at
+                  step k-1's and raise at the epoch's end; the head's log-det
+                  captured on a Jacobian with zero rows must take the jittered
+                  fallback at the eager jitter level with a finite gradient;
+                  the fallback's own cost a step.
+6. warmup      -- the miniboone CLI with its default likelihood warm-up for
+                  27 epochs of 2 batches: two flag keys, one graph each,
+                  launches equal to the likelihood steps.
+7. train-mnist -- the CLI trains the mnist non-square model (Hutchinson + CG)
                   at full width for 10 steps; then one step on the card
                   against the same step on the CPU, on the same weights,
                   dequantization noise and Hutchinson probes.
-6. sample      -- ``sample(250)`` and ``fixed_sample()`` of the trained mnist
+8. sample      -- ``sample(250)`` and ``fixed_sample()`` of the trained mnist
                   model, which must launch the coupler kernel once per
                   coupling inverse; the samples against the same noise decoded
                   through the conv modules.
@@ -41,6 +57,7 @@ and prints no result. It imports nothing of JAX and nothing of ``cmf_tpu``.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -76,6 +93,12 @@ COUPLER_MAIN = [(250, 1, 2, 28, 64, 8), (50, 1, 2, 28, 64, 8), (250, 2, 4, 14, 6
 # (3->6 at 64x64, a 16-CTA cluster with 16-channel weight chunks).
 COUPLER_EDGE = [(1, 1, 2, 28, 64, 8), (50, 1, 2, 28, 64, 1), (50, 2, 4, 14, 16, 8),
                 (3, 1, 2, 7, 16, 1), (8, 3, 6, 32, 64, 8), (2, 3, 6, 64, 64, 8)]
+# Captured steps against eager steps of the same step function on the same
+# card: the same kernels on the same inputs, so any difference is a fault.
+CAPTURED_TOL = 1e-6
+# The captured epoch's first NaN batch (1-based); it and every later batch
+# of the epoch are NaN.
+FREEZE_STEP = 4
 # One mnist step on the card against the same step on the CPU, batch 8:
 # ten ResNet couplers of 17 convs, the Hutchinson surrogate through a JVP
 # and a VJP of the decode, and its second-order gradient, each side summing
@@ -98,6 +121,13 @@ TRAIN_ARGV = [
     "--config", "max_dataset_size=4000", "--config", "seed=0",
     # Validation / early stopping and FID wait for a later slice of the port,
     # which refuses a config that asks for them.
+    "--config", "early_stopping=False", "--config", "use_fid=False",
+]
+# The flagship's own likelihood warm-up (start 25, end 50): 25 epochs of
+# reconstruction alone, then the likelihood; two flag keys, two graphs.
+TRAIN_WARMUP_ARGV = [
+    "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
+    "--config", "max_epochs=27", "--config", "max_dataset_size=800", "--config", "seed=0",
     "--config", "early_stopping=False", "--config", "use_fid=False",
 ]
 TRAIN_MNIST_ARGV = [
@@ -376,10 +406,10 @@ def phase_kernels():
     kernels = []
     for name, kern, plain, lib, n_bytes, n_flops, replaces, launches_key in (
         ("gram_logdet_fwd", lambda: gl.gram_logdet_fwd_cuda(j), lambda: gl.gram_logdet_plain(j),
-         fwd_library, fwd_bytes, fwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:75", "FWD_LAUNCHES"),
+         fwd_library, fwd_bytes, fwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:75", "GRAM_FWD"),
         ("gram_logdet_bwd", lambda: gl.gram_logdet_bwd_cuda(j, l_k, gbar, ldbar),
          lambda: gl.gram_logdet_bwd_plain(j, l_k, gbar, ldbar),
-         bwd_library, bwd_bytes, bwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:109", "BWD_LAUNCHES"),
+         bwd_library, bwd_bytes, bwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:109", "GRAM_BWD"),
     ):
         ms = cuda_ms(kern)
         device_ms = profiled_device_ms(kern, f"{name}_kernel")
@@ -410,23 +440,24 @@ def phase_kernels():
     return kernels
 
 
-def step_time(trainer, x, flags, n_steps, tag):
-    """Host-clock ms per training step, after one warm-up step."""
+def step_time(step, x, flags, n_steps, tag, route=""):
+    """Host-clock ms per training step of ``step`` (a trainer's ``step`` or
+    ``eager_step``), after one warm-up step."""
     import torch
 
-    trainer.step(x, flags)
+    step(x, flags)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
-        trainer.step(x, flags)
+        step(x, flags)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    print(f"[{tag}] {step_ms:.4f} ms per step, {x.shape[0] / step_ms * 1e3:.1f} samples/s "
+    print(f"[{tag}] {route}{step_ms:.4f} ms per step, {x.shape[0] / step_ms * 1e3:.1f} samples/s "
           f"(batch {x.shape[0]}, {n_steps} steps, host clock)")
     return step_ms
 
 
-def profile_steps(trainer, x, flags, n_steps, tag):
+def profile_steps(step, x, flags, n_steps, tag, route=""):
     """Where a step's device time goes, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -434,7 +465,7 @@ def profile_steps(trainer, x, flags, n_steps, tag):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            trainer.step(x, flags)
+            step(x, flags)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device-side events only (kernels, copies, fills): an aten op's own
@@ -452,14 +483,16 @@ def profile_steps(trainer, x, flags, n_steps, tag):
         reverse=True,
     )
     busy = sum(r[0] for r in rows)
+    ops = sum(r[2] for r in rows) // n_steps
     if busy:
-        print(f"[{tag}] profile of {n_steps} steps: {sum(r[2] for r in rows) // n_steps} device "
+        print(f"[{tag}] {route}profile of {n_steps} steps: {ops} device "
               f"ops/step, busy {busy / n_steps / 1e3:.4f} ms/step of {wall_us / n_steps / 1e3:.4f} "
               f"ms/step wall (idle share {1 - busy / wall_us:.3f})")
         for dt, key, count in rows[:12]:
             print(f"[{tag}]   {dt / n_steps / 1e3:9.4f} ms/step  x{count // n_steps:<4d} {key[:90]}")
     else:
-        print(f"[{tag}] profile: no device time in the trace (not measured)")
+        print(f"[{tag}] {route}profile: no device time in the trace (not measured)")
+    return ops, busy / n_steps / 1e3, wall_us / n_steps / 1e3
 
 
 def card_vs_cpu(setup, x, flags, tag, loss_tol, grad_tol, **draws):
@@ -493,6 +526,11 @@ def card_vs_cpu(setup, x, flags, tag, loss_tol, grad_tol, **draws):
     assert grad_err <= grad_tol, f"{tag}: gradients on the card disagree with the CPU step"
 
 
+def captured_steps(trainer):
+    """The trainer's captured graphs, one a flag key."""
+    return [g for g in trainer.graphs.values() if g is not None]
+
+
 def phase_train():
     import torch
     from cmf_tpu_torch.densities import nonsquare
@@ -500,32 +538,238 @@ def phase_train():
     from cmf_tpu_torch.ops import gram_logdet as gl
 
     gl.reset_launch_counts()
-    nonsquare.LOGDET_FALLBACKS = 0
+    nonsquare.reset_logdet_fallbacks()
     t0 = time.perf_counter()
     (setup,) = cli_main(TRAIN_ARGV)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    counts = {"FWD_LAUNCHES": gl.FWD_LAUNCHES, "BWD_LAUNCHES": gl.BWD_LAUNCHES}
-    fallbacks = nonsquare.LOGDET_FALLBACKS
+    fwd, bwd = gl.launch_counts()
+    counts = {"GRAM_FWD": fwd, "GRAM_BWD": bwd}
+    fallbacks = nonsquare.logdet_fallbacks()
 
     trainer = setup["trainer"]
+    graphs = captured_steps(trainer)
     losses = [h[1] for h in trainer.history]
     lik_steps = sum(1 for h in trainer.history if not h[3])
-    print(f"[train] {len(losses)} steps in {train_s:.2f} s (first epoch includes warm-up); "
+    print(f"[train] {len(losses)} steps in {train_s:.2f} s (first epoch includes warm-up and capture); "
           f"losses {losses[0]:.6g} -> {losses[-1]:.6g}")
-    print(f"[train] likelihood steps {lik_steps}; FWD_LAUNCHES {counts['FWD_LAUNCHES']}, "
-          f"BWD_LAUNCHES {counts['BWD_LAUNCHES']}; jitter fallbacks {fallbacks}")
+    print(f"[train] route: {'captured' if trainer.captured else 'eager'}; {len(graphs)} graph(s) captured")
+    print(f"[train] likelihood steps {lik_steps}; Gram/log-det kernel launches (fwd, bwd) {fwd}, {bwd} "
+          f"(counted on the device, under replay); jitter fallbacks {fallbacks}")
     assert all(torch.isfinite(torch.tensor(losses))), "non-finite training loss"
     assert lik_steps == len(losses) > 0, "the likelihood was off for some steps"
-    assert counts["FWD_LAUNCHES"] == lik_steps, "forward kernel launches != likelihood steps"
-    assert counts["BWD_LAUNCHES"] == lik_steps, "backward kernel launches != likelihood steps"
+    assert trainer.captured and len(graphs) == 1, "the exact path did not train through one CUDA graph"
+    assert fwd == lik_steps, "forward kernel launches != likelihood steps"
+    assert bwd == lik_steps, "backward kernel launches != likelihood steps"
 
     flags = trainer.objective.for_epoch(trainer.epoch)
     x = next(iter(trainer.train_loader))
-    step_time(trainer, x, flags, 20, "train")
-    profile_steps(trainer, x, flags, 5, "train")
+    gl.reset_launch_counts()
+    trainer.step(x, flags)
+    replay = gl.launch_counts()
+    print(f"[train] Gram/log-det kernel launches (fwd, bwd) in one replay: {replay}")
+    assert replay == (1, 1), "a replay does not launch each Gram/log-det kernel once"
+    step_time(trainer.step, x, flags, 20, "train", "captured: ")
+    step_time(trainer.eager_step, x, flags, 20, "train", "eager: ")
+    replay_ms = cuda_ms(lambda: trainer.step(x, flags), iters=50, warmup=3)
+    print(f"[train] captured: {replay_ms:.4f} ms per step back to back (CUDA events: the device's span "
+          f"of a replay with its input copy and output clone)")
+    ops, busy, wall = profile_steps(trainer.step, x, flags, 5, "train", "captured: ")
+    eager_ops, _, _ = profile_steps(trainer.eager_step, x, flags, 5, "train", "eager: ")
+    if ops < eager_ops // 2:
+        print(f"[train] captured: the profiler resolves {ops} of the eager step's {eager_ops} device "
+              f"ops a step: it does not see the kernels inside a graph replay, so the captured idle "
+              f"share above is not measured")
     card_vs_cpu(setup, x, flags, "train", STEP_LOSS_TOL, STEP_GRAD_TOL)
-    return counts
+    return counts, replay_ms
+
+
+def train_state(trainer):
+    """The parameters and every optimizer state tensor, cloned."""
+    state = [v for p in trainer.params for v in trainer.optimizer.state[p].values()]
+    return [t.detach().clone() for t in list(trainer.params) + state]
+
+
+def max_rel_diff(got, ref):
+    """Max over tensors of max |got - ref| / max |ref|."""
+    worst = 0.0
+    for g, r in zip(got, ref):
+        diff = float((g.double() - r.double()).abs().max())
+        scale = float(r.double().abs().max())
+        worst = max(worst, diff / scale if scale else diff)
+    return worst
+
+
+def fresh_trainer():
+    """A miniboone trainer at full width with the smoke's weights (seed 0),
+    before any step."""
+    from cmf_tpu_torch.main import main as cli_main
+
+    (setup,) = cli_main(TRAIN_ARGV + ["--config", "max_epochs=0"])
+    return setup["trainer"]
+
+
+def phase_captured(step_ms):
+    import torch
+    from cmf_tpu_torch.densities import nonsquare
+    from cmf_tpu_torch.ops import cholesky_logdet, gram_from_columns, jittered_cholesky
+
+    captured, eager = fresh_trainer(), fresh_trainer()
+    flags = captured.objective.for_epoch(1)
+    batches = list(captured.train_loader)
+    n = len(batches)
+
+    # Captured against eager: the same step function, weights and batches.
+    # The likelihood weight changes every step, as in the warmup: a graph
+    # must read it as an input.
+    step_flags = [{**flags, "likelihood_wt": 0.5 + 0.05 * i} for i in range(n)]
+    out_c = torch.stack([torch.stack(captured.step(x, f)) for x, f in zip(batches, step_flags)])
+    out_e = torch.stack([torch.stack(eager.eager_step(x, f)) for x, f in zip(batches, step_flags)])
+    state_c, state_e = train_state(captured), train_state(eager)
+    loss_rel = float(((out_c - out_e).abs() / out_e.abs()).max())
+    state_rel = max_rel_diff(state_c, state_e)
+    exact = all(torch.equal(a, b) for a, b in zip(state_c, state_e))
+    print(f"[captured] {n} captured vs {n} eager steps from the same weights, likelihood weight 0.5 to "
+          f"{step_flags[-1]['likelihood_wt']:g}: max rel diff of the losses "
+          f"and grad norms {loss_rel:.3e}, of {len(state_c)} parameter and Adam state tensors "
+          f"{state_rel:.3e} (tol {CAPTURED_TOL:g}); bit-equal {exact}; "
+          f"{len(captured_steps(captured))} graph(s) captured")
+    assert loss_rel <= CAPTURED_TOL and state_rel <= CAPTURED_TOL, "captured steps drift from eager steps"
+
+    # No host read in the eager exact step.
+    x = batches[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.eager_step(x, flags)
+        captured.step(x, flags)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("[captured] one eager exact step and one replay under set_sync_debug_mode('error'): no sync")
+
+    # The freeze: batches k..n are NaN in a captured epoch.
+    k = FREEZE_STEP
+    poisoned = [x if i < k - 1 else torch.full_like(x, float("nan")) for i, x in enumerate(batches)]
+    snaps = []
+
+    def loader():
+        for x in poisoned:
+            yield x
+            snaps.append(train_state(captured))
+
+    for x in poisoned[: k - 1]:
+        eager.eager_step(x, flags)
+    ref = train_state(eager)
+    captured.train_loader = loader()
+    raised = False
+    try:
+        captured._train_epoch(2)
+    except FloatingPointError:
+        raised = True
+    before, at_k = snaps[k - 2], snaps[k - 1]
+    vs_eager = max_rel_diff(before, ref)
+    frozen = all(torch.equal(a, b) for a, b in zip(at_k, before))
+    still = all(torch.equal(a, b) for s in snaps[k:] for a, b in zip(s, at_k))
+    print(f"[captured] NaN batches from step {k} of {n}: FloatingPointError at the epoch's end {raised}; "
+          f"state after step {k - 1} vs eager max rel diff {vs_eager:.3e}; state after step {k} equals "
+          f"it {frozen}; steps {k + 1}-{n} changed nothing {still}")
+    assert raised, "a NaN loss in a captured epoch did not raise at its end"
+    assert vs_eager <= CAPTURED_TOL, "the captured state before the NaN step differs from the eager one"
+    assert frozen and still, "a NaN step changed the parameters or the Adam state"
+
+    # The head's log-det captured, with its jitter fallback.
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d, b, big_d = MAIN_SHAPE
+    j_ok = torch.randn(MAIN_SHAPE, device=dev, generator=gen)
+    j_bad = j_ok.clone()
+    zero_rows = torch.arange(b, device=dev) % 50 == 7
+    j_bad[3, zero_rows] = 0.0
+    w = torch.randn((b,), device=dev, generator=gen)
+    static = j_ok.clone().requires_grad_(True)
+
+    def head_log_det():
+        gram, ld = nonsquare.exact_log_det_from_columns(static)
+        (grad,) = torch.autograd.grad((ld * w).sum(), static)
+        return gram, ld, grad
+
+    graph, out = capture(head_log_det)
+    for j, want in ((j_bad, 1), (j_ok, 0)):
+        nonsquare.reset_logdet_fallbacks()
+        with torch.no_grad():
+            static.copy_(j)
+        graph.replay()
+        gram, ld, grad = (t.detach() for t in out)
+        torch.cuda.synchronize()
+        fallbacks = nonsquare.logdet_fallbacks()
+        ref_gram = gram_from_columns(j)
+        ref_ld, ref_total = cholesky_logdet(ref_gram)
+        total = jittered_cholesky(gram)[1]
+        err = rel_err(ld, ref_ld)
+        finite = bool(torch.isfinite(grad).all())
+        print(f"[captured] head log-det in a graph, {int(zero_rows.sum()) if want else 0} of {b} elements "
+              f"with a zero row: fallbacks {fallbacks} (want {want}); jitter {float(total):g} vs eager "
+              f"{float(ref_total):g}; log-det vs eager cholesky_logdet(gram_from_columns(J)) max rel err "
+              f"{err:.3e} (tol {FWD_TOL:g}); gradient finite {finite}")
+        assert fallbacks == want, "the captured head took the wrong branch"
+        assert torch.equal(total, ref_total), "the captured fallback took another jitter level"
+        assert err <= FWD_TOL and finite, "the captured fallback disagrees or its gradient is not finite"
+
+    # What the fallback costs a step: its forward and backward, alone.
+    g_static = gram_from_columns(j_ok).detach().requires_grad_(True)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    eye = torch.eye(d, device=dev)
+
+    def fallback():
+        ld, _ = cholesky_logdet(torch.where(ok, eye, g_static))
+        return torch.autograd.grad(ld.sum(), g_static)
+
+    graph, _ = capture(fallback)
+    fallback_ms = cuda_ms(graph.replay, iters=50, warmup=3)
+    print(f"[captured] the jitter fallback's forward and backward at B={b}, d={d}, captured: "
+          f"{fallback_ms:.4f} ms a replay, {fallback_ms / step_ms:.3f} of the captured step's {step_ms:.4f} ms")
+
+
+def phase_warmup():
+    """The miniboone CLI with its default warm-up, across the epoch where the
+    likelihood comes in: each flag key trains through its own graph."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    gl.reset_launch_counts()
+    t0 = time.perf_counter()
+    (setup,) = cli_main(TRAIN_WARMUP_ARGV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trainer = setup["trainer"]
+    fwd, bwd = gl.launch_counts()
+    history = trainer.history
+    lik_steps = sum(1 for h in history if not h[3])
+    graphs = captured_steps(trainer)
+    print(f"[warmup] {trainer.epoch} epochs, {len(history)} steps ({lik_steps} with the likelihood) in "
+          f"{seconds:.2f} s; {len(graphs)} graph(s) captured; Gram/log-det launches (fwd, bwd) {fwd}, {bwd}; "
+          f"losses {history[0][1]:.6g} -> {history[-1][1]:.6g}")
+    assert all(math.isfinite(h[1]) for h in history), "non-finite loss in the warm-up run"
+    assert 0 < lik_steps < len(history), "the warm-up run did not span the likelihood's introduction"
+    assert trainer.captured and len(graphs) == 2, "the warm-up run did not train through one graph a key"
+    assert fwd == bwd == lik_steps, "Gram/log-det launches != likelihood steps in the warm-up run"
+
+
+def capture(fn):
+    """``fn`` warmed up once on a side stream, then captured: (graph, its
+    outputs)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    return graph, out
 
 
 def random_coupler(b, c_in, c_out, hw, hidden, blocks, gen):
@@ -643,8 +887,8 @@ def phase_train_mnist():
 
     flags = trainer.objective.for_epoch(trainer.epoch)
     x = next(iter(trainer.train_loader))
-    step_time(trainer, x, flags, 5, "train-mnist")
-    profile_steps(trainer, x, flags, 3, "train-mnist")
+    step_time(trainer.step, x, flags, 5, "train-mnist")
+    profile_steps(trainer.step, x, flags, 3, "train-mnist")
     head = mnist_head(setup["density"])
     gen = torch.Generator(device=x.device).manual_seed(1)
     xb = x[:8]
@@ -719,7 +963,9 @@ def main():
     name, smi = phase_device()
     phase_build()
     kernels = phase_kernels() + [phase_coupler_kernel()]
-    counts = phase_train()
+    counts, step_ms = phase_train()
+    phase_captured(step_ms)
+    phase_warmup()
     setup = phase_train_mnist()
     counts.update(phase_sample(setup))
     for k in kernels:

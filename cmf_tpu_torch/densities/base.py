@@ -15,6 +15,10 @@ same keys as the JAX package's ``{"params", "state"}`` trees, so
   fused coupler-stack kernel (``nets/core.py``). ``_sample`` /
   ``_fixed_sample`` are the same functions in whatever mode the caller is
   in: under ``torch.no_grad()`` they take the conv modules instead.
+* ``step_capturable`` — whether a training step's elbo can run inside a CUDA
+  graph: it reads nothing on the host and draws no random numbers. A density
+  is as capturable as the densities it holds; one that reads the host or
+  draws says no itself.
 """
 
 import torch
@@ -24,6 +28,10 @@ from torch import nn
 class Density(nn.Module):
     def elbo(self, x, **kw):
         raise NotImplementedError
+
+    @property
+    def step_capturable(self):
+        return all(m.step_capturable for m in self.children() if isinstance(m, Density))
 
     def sample(self, num_samples, generator=None):
         with torch.inference_mode():

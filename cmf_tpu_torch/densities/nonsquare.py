@@ -38,9 +38,50 @@ _VALID_SOLVERS = ("auto", "gram", "cg")
 # (nonsquare.py:63).
 _GRAM_SOLVER_MAX_D = 64
 
-# Steps whose fused log-det was not all finite and was recomputed with the
-# jittered Cholesky on the kernel's Gram. Read by chip_smoke.py.
-LOGDET_FALLBACKS = 0
+# Device → a 0-dim int64 count of the exact log-dets whose fused value was
+# not all finite and was replaced by the jittered Cholesky on the kernel's
+# Gram. Counted on the device, so a CUDA graph counts on every replay; read
+# by ``logdet_fallbacks`` (the trainer at each epoch's end, chip_smoke.py).
+LOGDET_FALLBACKS = {}
+
+
+def logdet_fallbacks():
+    """The fallbacks counted so far on every device (a host read)."""
+    return sum(int(c) for c in LOGDET_FALLBACKS.values())
+
+
+def reset_logdet_fallbacks():
+    """Zero the counts in place: a captured graph keeps its counter."""
+    for c in LOGDET_FALLBACKS.values():
+        c.zero_()
+
+
+def _fallback_counter(device):
+    if device not in LOGDET_FALLBACKS:
+        LOGDET_FALLBACKS[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return LOGDET_FALLBACKS[device]
+
+
+def exact_log_det_from_columns(jac_cols):
+    """(gram (B,d,d), log_det (B,)) of (d, B, D) Jacobian columns, as
+    cmf_tpu routes them (nonsquare.py:248-266). Inside the kernels' gate the
+    fused Gram + Cholesky + log-det; where its log-det is not all finite, the
+    jittered Cholesky of the kernel's Gram takes its place, so the gradient
+    flows back into the backward kernel through Ḡ. The reference's
+    ``lax.cond`` is a select on the device here: the fallback is computed
+    every call, on the identity where it is not taken, so that no NaN of an
+    unselected branch reaches the gradient as 0·NaN. Outside the gate the
+    plain Gram and the jittered Cholesky."""
+    d, big_d = jac_cols.shape[0], jac_cols.shape[-1]
+    if not fused_gram_logdet_available(d, big_d):
+        gram = gram_from_columns(jac_cols)
+        return gram, cholesky_logdet(gram)[0]
+    gram, kernel_log_det = fused_gram_logdet(jac_cols)
+    ok = torch.isfinite(kernel_log_det).all()
+    eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
+    fallback_log_det, _ = cholesky_logdet(torch.where(ok, eye, gram))
+    _fallback_counter(ok.device).add_(~ok)
+    return gram, torch.where(ok, kernel_log_det, fallback_log_det)
 
 
 class NonSquareHeadDensity(Density):
@@ -77,6 +118,13 @@ class NonSquareHeadDensity(Density):
 
     def decode(self, u):
         return self.prior.decode(u)
+
+    @property
+    def step_capturable(self):
+        """The exact log-det reads nothing on the host; the Hutchinson
+        estimate draws its probes and its CG loop reads a flag each
+        iteration."""
+        return self.log_jacobian_method == "cholesky" and super().step_capturable
 
     def _decode_flat(self, u):
         return self.prior.decode(u).reshape(u.shape[0], -1)
@@ -163,24 +211,12 @@ class NonSquareHeadDensity(Density):
     def _exact_log_det(self, z):
         """(non_square.py:262-311) d basis-tangent pushforwards → Gram →
         Cholesky log-det. Returns (log_det, recon_flat, gram)."""
-        global LOGDET_FALLBACKS
         program = self._dense_decode_program()
         if program is not None:
             recon_flat, jac_cols = program(z)
         else:
             recon_flat, jac_cols = self._generic_jacobian(z)
-        d, big_d = jac_cols.shape[0], jac_cols.shape[-1]
-        if fused_gram_logdet_available(d, big_d):
-            gram, log_det = fused_gram_logdet(jac_cols)
-            # A non-PD Gram gives a non-finite log-det: recompute it with the
-            # jittered Cholesky on the kernel's Gram, so the gradient flows
-            # back into the backward kernel through Ḡ. One host sync a step.
-            if not bool(torch.isfinite(log_det).all()):
-                LOGDET_FALLBACKS += 1
-                log_det, _ = cholesky_logdet(gram)
-        else:
-            gram = gram_from_columns(jac_cols)
-            log_det, _ = cholesky_logdet(gram)
+        gram, log_det = exact_log_det_from_columns(jac_cols)
         return log_det, recon_flat, gram
 
     def _resolved_hutch_solver(self, d):

@@ -23,6 +23,12 @@ class DequantizationDensity(Density):
             noise = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
         return self.density.elbo(x + noise, generator=generator, **kw)
 
+    @property
+    def step_capturable(self):
+        """No: a training step draws the noise from the caller's generator,
+        which a CUDA graph does not hold."""
+        return False
+
     def decode(self, u):
         return self.density.decode(u)
 

@@ -5,8 +5,10 @@ Same semantics as the JAX package: a non-PD input gives NaN, never an
 exception (``torch.linalg.cholesky`` would raise, so it is not used), and the
 retry adds one jitter level for the whole batch, starting at 1e-6, ×10 per
 try, at most 6 tries, then runs one clean differentiable factorisation at the
-level found (chol.py:59-117). Deciding whether to retry reads a flag on the
-host, as the reference's ``try/except`` around ``torch.linalg.cholesky`` did.
+level found (chol.py:59-117). The search reads nothing on the host, so a
+CUDA graph can hold it: where the reference's ``lax.while_loop`` stops at the
+first finite try, every try is factorised in one batch and the first whose
+whole batch is finite is selected on the device.
 """
 
 import torch
@@ -47,23 +49,33 @@ def _cholesky(g):
 def jittered_cholesky(gram):
     """Batched lower-Cholesky of SPD matrices with escalating-jitter retry.
 
-    Returns (L, total_jitter): total_jitter is the eps added to the diagonal
-    (0.0 when the first attempt succeeded).
+    Returns (L, total_jitter): total_jitter is a 0-dim tensor on ``gram``'s
+    device, the eps added to the diagonal (0 when the first attempt
+    succeeded); the same float32 value as the reference's, since the tries
+    are built by its repeated adds (``g = g + eps·I``, ``total + eps``,
+    ``eps·10``). Level 0 (no jitter) and the six tries are factorised as one
+    batch without a gradient; the first level whose whole batch is finite
+    is taken, the last one where none is. L is one clean differentiable
+    factorisation of ``gram + total·I``: at total 0 that is the level-0
+    factor itself, since ``gram + 0·I`` is ``gram``.
     """
-    L0 = _cholesky(gram)
-    if bool(torch.isfinite(L0).all()):
-        return L0, 0.0
-    eye = torch.eye(gram.shape[-1], dtype=gram.dtype, device=gram.device)
-    # Non-differentiable escalation loop; it only finds the jitter level.
+    d = gram.shape[-1]
+    eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
     with torch.no_grad():
         g = gram.detach()
-        eps, total = _EPS0, 0.0
+        eps = torch.full((), _EPS0, dtype=gram.dtype, device=gram.device)
+        tries, totals = [g], [torch.zeros_like(eps)]
         for _ in range(_MAX_ATTEMPTS):
             g = g + eps * eye
-            total += eps
-            eps *= _EPS_FACTOR
-            if bool(torch.isfinite(_cholesky(g)).all()):
-                break
+            tries.append(g)
+            totals.append(totals[-1] + eps)
+            eps = eps * _EPS_FACTOR
+        factors = _cholesky(torch.stack(tries))
+        finite = torch.isfinite(factors).reshape(len(tries), -1).all(dim=1)
+        finite[-1].fill_(True)  # every try failed: the reference stops at the last
+        # argmax gives the first of equal maxima.
+        level = torch.argmax(finite.to(torch.int32)).reshape(1)
+        total = torch.stack(totals).index_select(0, level).reshape(())
     return _cholesky(gram + total * eye), total
 
 

@@ -12,8 +12,16 @@ in place of G⁻¹) for the CPU tests; no path of the port calls them.
 
 ``fused_gram_logdet`` dispatches on the tensor's device only: on a CUDA
 tensor it launches the kernels or raises; on a CPU tensor it takes the plain
-versions. ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count kernel launches, so a run
-can show that its main path went through them.
+versions. Each wrapper counts its launches on the device, one add on the
+launch's stream right after the kernel, so a run can show that its main path
+went through them; ``launch_counts`` reads the counts on the host.
+
+Both kernels can be captured in a CUDA graph: they launch on
+``torch.cuda.current_stream()`` (the autograd backward runs on the stream of
+its forward, the capture stream), take every buffer from torch's allocator,
+and the C entries set the shared-memory opt-in at a device's first launch,
+which an eager step makes before any capture. The graph captures each
+count's add with its kernel, so a replay counts its launches too.
 """
 
 import ctypes
@@ -30,14 +38,28 @@ from .gram import gram_from_columns
 MAX_D_LATENT = 32
 MAX_D_AMBIENT = 128
 
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
+# Device → int64 (2,): launches of the forward and of the backward kernel.
+# Made at a device's first eager launch, before any capture.
+_LAUNCHES = {}
+
+
+def launch_counts():
+    """(forward, backward) kernel launches so far on every device (a host
+    read)."""
+    counts = [c.tolist() for c in _LAUNCHES.values()]
+    return tuple(sum(c[i] for c in counts) for i in range(2))
 
 
 def reset_launch_counts():
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    FWD_LAUNCHES = 0
-    BWD_LAUNCHES = 0
+    """Zero the counts in place: a captured graph keeps its counter."""
+    for c in _LAUNCHES.values():
+        c.zero_()
+
+
+def _count_launch(device, which):
+    if device not in _LAUNCHES:
+        _LAUNCHES[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    _LAUNCHES[device][which].add_(1)
 
 
 def fused_gram_logdet_available(d, big_d):
@@ -175,7 +197,6 @@ def _raise_on(rc, what):
 
 def gram_logdet_fwd_cuda(jac_cols):
     """Kernel 1: (d, B, D) → (gram (B,d,d), logdet (B,), L (B,d,d))."""
-    global FWD_LAUNCHES
     d, b, big_d = _shape(jac_cols)
     _check("jac_cols", jac_cols, (d, b, big_d))
     gram = torch.empty((b, d, d), dtype=torch.float32, device=jac_cols.device)
@@ -189,13 +210,12 @@ def gram_logdet_fwd_cuda(jac_cols):
             d, b, big_d, stream,
         )
     _raise_on(rc, "gram_logdet forward")
-    FWD_LAUNCHES += 1
+    _count_launch(jac_cols.device, 0)
     return gram, logdet, L
 
 
 def gram_logdet_bwd_cuda(jac_cols, L, gbar, ldbar):
     """Kernel 2: dJ (d, B, D) from J, the saved L, Ḡ (B,d,d) and ḡ_ld (B,)."""
-    global BWD_LAUNCHES
     d, b, big_d = _shape(jac_cols)
     _check("jac_cols", jac_cols, (d, b, big_d))
     _check("L", L, (b, d, d))
@@ -210,7 +230,7 @@ def gram_logdet_bwd_cuda(jac_cols, L, gbar, ldbar):
             djac.data_ptr(), d, b, big_d, stream,
         )
     _raise_on(rc, "gram_logdet backward")
-    BWD_LAUNCHES += 1
+    _count_launch(jac_cols.device, 1)
     return djac
 
 

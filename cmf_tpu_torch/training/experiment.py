@@ -49,7 +49,12 @@ def check_supported(config):
 
 
 def make_optimizer(config, params):
-    return torch.optim.Adam(params, lr=config["lr"], betas=(0.9, 0.999), eps=1e-8)
+    """Adam. On the card it is capturable: its step count lives on the
+    device, so a step reads nothing on the host and a CUDA graph can hold
+    it. On the CPU the plain form."""
+    params = list(params)
+    capturable = any(p.is_cuda for p in params)
+    return torch.optim.Adam(params, lr=config["lr"], betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
 
 
 def setup_experiment(config, device=None):

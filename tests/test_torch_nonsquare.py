@@ -79,14 +79,19 @@ def test_non_finite_kernel_logdet_falls_back(monkeypatch):
     want = td.elbo(x)["elbo"].detach()
     fused = nonsquare.fused_gram_logdet
 
+    # The kernel's own NaN output: the cotangent the head gives it passes
+    # through unchanged (a product with NaN would turn its zero into NaN).
+    # That the real backward kernel keeps the gradient finite under that
+    # zero cotangent is held on the card by chip_smoke.py's mixed batch of
+    # NaN factors with ḡ_ld = 0.
     def nan_logdet(jac_cols):
         gram, ld = fused(jac_cols)
-        return gram, ld * float("nan")
+        return gram, ld + float("nan")
 
     monkeypatch.setattr(nonsquare, "fused_gram_logdet", nan_logdet)
-    monkeypatch.setattr(nonsquare, "LOGDET_FALLBACKS", 0)
+    monkeypatch.setattr(nonsquare, "LOGDET_FALLBACKS", {})
     got = td.elbo(x)["elbo"]
-    assert nonsquare.LOGDET_FALLBACKS == 1
+    assert nonsquare.logdet_fallbacks() == 1
     np.testing.assert_allclose(got.detach().numpy(), want.numpy(), rtol=1e-5, atol=1e-3)
     (-got.mean()).backward()
     assert all(torch.isfinite(p.grad).all() for p in td.parameters())

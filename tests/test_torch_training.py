@@ -60,7 +60,7 @@ def test_three_step_trajectory_matches_optax_adam():
         updates, opt_state = opt.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         losses_j.append(float(loss))
-        losses_t.append(trainer.step(t(x), f)[0])
+        losses_t.append(float(trainer.step(t(x), f)[0]))
         # Elements whose JAX gradient is exactly zero (a channel the decode
         # zero-pads) where the port's is one rounding unit.
         grads_t = torch_grads(td)
@@ -143,11 +143,11 @@ CLI_ARGS = [
 def test_cli_trains_on_cpu():
     from cmf_tpu_torch.ops import gram_logdet as gl
 
-    launches = (gl.FWD_LAUNCHES, gl.BWD_LAUNCHES)
+    launches = gl.launch_counts()
     (setup,) = main(CLI_ARGS + ["--device", "cpu"])
     history = setup["trainer"].history
     assert len(history) == 6  # 2 epochs × 3 batches of 40
     assert all(np.isfinite(h[1]) and not h[3] for h in history)
-    assert (gl.FWD_LAUNCHES, gl.BWD_LAUNCHES) == launches
+    assert gl.launch_counts() == launches
     assert all(p.device.type == "cpu" for p in setup["density"].parameters())
     assert torch.backends.cuda.matmul.allow_tf32 is False

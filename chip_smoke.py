@@ -42,11 +42,21 @@ Phases, each of which fails the run on its own failure:
 6. warmup      -- the miniboone CLI with its default likelihood warm-up for
                   27 epochs of 2 batches: two flag keys, one graph each,
                   launches equal to the likelihood steps.
-7. train-mnist -- the CLI trains the mnist non-square model (Hutchinson + CG)
+7. default     -- the flagship's default run: the miniboone CLI with the
+                  published defaults (a run dir, early stopping from epoch
+                  50, FID on 10,000 samples as the validation loss, a test
+                  pass every 5 epochs, ``latest`` and ``best_valid``
+                  checkpoints) for 53 epochs of 2 batches; then the run dir
+                  resumed to epoch 55, its restored state bit-equal to the
+                  saved ``latest`` and its epochs trained through a graph;
+                  then ``--test --resume`` from ``best_valid``. Seconds of
+                  the run, ms per FID pass and per checkpoint save, and the
+                  share of the run outside training steps.
+8. train-mnist -- the CLI trains the mnist non-square model (Hutchinson + CG)
                   at full width for 10 steps; then one step on the card
                   against the same step on the CPU, on the same weights,
                   dequantization noise and Hutchinson probes.
-8. sample      -- ``sample(250)`` and ``fixed_sample()`` of the trained mnist
+9. sample      -- ``sample(250)`` and ``fixed_sample()`` of the trained mnist
                   model, which must launch the coupler kernel once per
                   coupling inverse; the samples against the same noise decoded
                   through the conv modules.
@@ -58,8 +68,11 @@ and prints no result. It imports nothing of JAX and nothing of ``cmf_tpu``.
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # Main-path shape of the kernels: latent d, batch B, ambient D (miniboone).
@@ -119,8 +132,8 @@ TRAIN_ARGV = [
     "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
     "--config", "likelihood_warmup=False", "--config", "max_epochs=2",
     "--config", "max_dataset_size=4000", "--config", "seed=0",
-    # Validation / early stopping and FID wait for a later slice of the port,
-    # which refuses a config that asks for them.
+    # The training step alone: no run dir, validation or FID (the default
+    # phase runs those).
     "--config", "early_stopping=False", "--config", "use_fid=False",
 ]
 # The flagship's own likelihood warm-up (start 25, end 50): 25 epochs of
@@ -130,6 +143,14 @@ TRAIN_WARMUP_ARGV = [
     "--config", "max_epochs=27", "--config", "max_dataset_size=800", "--config", "seed=0",
     "--config", "early_stopping=False", "--config", "use_fid=False",
 ]
+# The flagship's default run, every other setting published: warm-up 25 -> 50,
+# early stopping from epoch 50 (20 bad epochs), FID on 10,000 samples in
+# chunks of 500, a test every 5 epochs, checkpoints `both'.
+DEFAULT_ARGV = [
+    "--model", "non-square", "--dataset", "miniboone", "--synthetic-data",
+    "--config", "max_epochs=53", "--config", "max_dataset_size=800", "--config", "seed=0",
+]
+DEFAULT_RESUME_EPOCHS = 55
 TRAIN_MNIST_ARGV = [
     "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--nosave",
     "--config", "likelihood_warmup=False", "--config", "early_stopping=False",
@@ -457,8 +478,22 @@ def step_time(step, x, flags, n_steps, tag, route=""):
     return step_ms
 
 
-def profile_steps(step, x, flags, n_steps, tag, route=""):
-    """Where a step's device time goes, under torch.profiler."""
+def host_ms(fn, n):
+    """Host-clock ms per call of ``n`` calls that end in a synchronize,
+    after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def profile_steps(step, x, flags, n_steps, tag, route="", unit="step"):
+    """Where a step's (a ``unit``'s) device time goes, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -485,11 +520,12 @@ def profile_steps(step, x, flags, n_steps, tag, route=""):
     busy = sum(r[0] for r in rows)
     ops = sum(r[2] for r in rows) // n_steps
     if busy:
-        print(f"[{tag}] {route}profile of {n_steps} steps: {ops} device "
-              f"ops/step, busy {busy / n_steps / 1e3:.4f} ms/step of {wall_us / n_steps / 1e3:.4f} "
-              f"ms/step wall (idle share {1 - busy / wall_us:.3f})")
+        units = unit + ("es" if unit.endswith("s") else "s")
+        print(f"[{tag}] {route}profile of {n_steps} {units}: {ops} device "
+              f"ops/{unit}, busy {busy / n_steps / 1e3:.4f} ms/{unit} of {wall_us / n_steps / 1e3:.4f} "
+              f"ms/{unit} wall (idle share {1 - busy / wall_us:.3f})")
         for dt, key, count in rows[:12]:
-            print(f"[{tag}]   {dt / n_steps / 1e3:9.4f} ms/step  x{count // n_steps:<4d} {key[:90]}")
+            print(f"[{tag}]   {dt / n_steps / 1e3:9.4f} ms/{unit}  x{count // n_steps:<4d} {key[:90]}")
     else:
         print(f"[{tag}] {route}profile: no device time in the trace (not measured)")
     return ops, busy / n_steps / 1e3, wall_us / n_steps / 1e3
@@ -756,6 +792,149 @@ def phase_warmup():
     assert fwd == bwd == lik_steps, "Gram/log-det launches != likelihood steps in the warm-up run"
 
 
+def _scalar_steps(run_dir, tag):
+    """{step: value} of one scalar of a run dir's ``scalars.jsonl``."""
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["step"]: r["value"] for r in rows if r["tag"] == f"miniboone/{tag}"}
+
+
+def _restore_streams(streams):
+    """The CLI's writer tees stdout and stderr into its run dir; the smoke's
+    own lines go to the streams it started with."""
+    sys.stdout.flush()
+    sys.stdout, sys.stderr = streams
+
+
+def phase_default(smi):
+    """The miniboone CLI with the published defaults, then ``--resume`` and
+    ``--test --resume`` on its run dir."""
+    import torch
+    from cmf_tpu_torch.densities import nonsquare
+    from cmf_tpu_torch.eval import fid
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.training import experiment
+    from cmf_tpu_torch.training.checkpoint import make_checkpoint
+
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
+    os.makedirs(runs, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=runs)
+    streams = sys.stdout, sys.stderr
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        nonsquare.reset_logdet_fallbacks()
+        t0 = time.perf_counter()
+        (setup,) = cli_main(DEFAULT_ARGV + ["--logdir-root", root])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _restore_streams(streams)
+        fwd, bwd = gl.launch_counts()
+        trainer = setup["trainer"]
+        run_dir = setup["writer"].logdir
+        history = trainer.history
+        lik_steps = sum(1 for h in history if not h[3])
+        graphs = captured_steps(trainer)
+        valid = _scalar_steps(run_dir, "valid/loss")
+        test_fid = _scalar_steps(run_dir, "test/fid")
+        checkpoints = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+        timings = trainer.timings
+        fid_n, fid_s = timings["fid"]
+        ckpt_n, ckpt_s = timings["checkpoint"]
+        train_s = timings["train"][1]
+        print(f"[default] {trainer.epoch} epochs, {len(history)} steps ({lik_steps} with the likelihood); "
+              f"{len(graphs)} graph(s) captured; Gram/log-det launches (fwd, bwd) {fwd}, {bwd}; "
+              f"log-det fallbacks {nonsquare.logdet_fallbacks()}; losses {history[0][1]:.6g} -> "
+              f"{history[-1][1]:.6g}")
+        print(f"[default] valid/loss (FID) at epochs {sorted(valid)}: "
+              f"{', '.join(f'{v:.6g}' for _, v in sorted(valid.items()))}; test/fid at epochs "
+              f"{sorted(test_fid)}: first {test_fid[min(test_fid)]:.6g}, last {test_fid[max(test_fid)]:.6g}; "
+              f"checkpoints {checkpoints}")
+        assert all(math.isfinite(h[1]) for h in history), "non-finite loss in the default run"
+        assert sorted(valid) == [50, 51, 52, 53], "valid/loss not written at epochs 50-53"
+        assert sorted(test_fid) == list(range(1, 52, 5)), "test/fid not written at epochs 1, 6, ..., 51"
+        assert all(math.isfinite(v) for v in list(valid.values()) + list(test_fid.values())), "non-finite FID"
+        assert {"best_valid.pt", "latest.pt"} <= set(checkpoints), "a checkpoint is missing"
+        assert trainer.captured and len(graphs) == 2, "the default run did not train through one graph a key"
+        assert fwd == bwd == lik_steps > 0, "Gram/log-det launches != likelihood steps in the default run"
+        assert fid_n == len(valid) + len(test_fid), "FID passes != validations + tests"
+        print(f"[default] {smi}: the run took {seconds:.4f} s; {fid_s / fid_n * 1e3:.4f} ms per FID pass "
+              f"({setup['config']['num_fid_samples']:,} samples, {fid_n} passes); {ckpt_s / ckpt_n * 1e3:.4f} ms per checkpoint save "
+              f"({ckpt_n} saves); training epochs {train_s:.4f} s, so {1 - train_s / seconds:.4f} of the "
+              f"run's wall time outside training steps (host clock)")
+
+        # Where a FID pass goes: its sample calls on the card, the host's sqrtm.
+        density, chunk = setup["density"], setup["config"]["test_batch_size"]
+        gen = torch.Generator(device=setup["device"]).manual_seed(1)
+        sample_ms = host_ms(lambda: density.sample(chunk, generator=gen), 10)
+        stats = [fid.activation_statistics([density.sample(chunk, generator=gen) for _ in range(4)])
+                 for _ in range(2)]
+        sqrtm_ms = host_ms(lambda: fid.frechet_distance(*stats[0], *stats[1]), 5)
+        calls = setup["config"]["num_fid_samples"] // chunk
+        print(f"[default] {smi}: a FID pass's parts: sample({chunk}) {sample_ms:.4f} ms a call, "
+              f"{calls} calls a pass ({calls * sample_ms:.4f} ms); frechet_distance (scipy sqrtm of a "
+              f"{stats[0][1].shape[0]}x{stats[0][1].shape[0]} product on the host) {sqrtm_ms:.4f} ms (host clock)")
+        profile_steps(lambda *_: trainer.fid_function(density, gen), None, None, 1, "default",
+                      "one FID pass: ", unit="pass")
+
+        # Resumed: a copy of the run dir trained on to epoch 55.
+        resumed_dir = run_dir + "_resumed"
+        shutil.copytree(run_dir, resumed_dir)
+        with open(os.path.join(resumed_dir, "config.json")) as f:
+            config = json.load(f)
+        config["max_epochs"] = DEFAULT_RESUME_EPOCHS
+        with open(os.path.join(resumed_dir, "config.json"), "w") as f:
+            json.dump(config, f)
+        saved = torch.load(os.path.join(resumed_dir, "checkpoints", "latest.pt"), weights_only=True)
+        gl.reset_launch_counts()
+        setup_r = experiment.setup_experiment(config, resume_dir=resumed_dir)
+        trainer_r = setup_r["trainer"]
+        loaded = make_checkpoint(trainer_r)
+        tensors = [(s, k) for s in ("params", "model_state", "opt_states") for k in saved[s]]
+        same = all(torch.equal(loaded[s][k], saved[s][k]) for s, k in tensors)
+        same_rest = all(loaded[k] == saved[k] for k in ("epoch", "iteration", "best_valid_loss",
+                                                        "num_bad_valid_epochs"))
+        same_rng = torch.equal(loaded["rng"], saved["rng"])
+        print(f"[default] resumed from `{trainer_r.restored_from}' after epoch {saved['epoch']}: "
+              f"{len(tensors)} parameter, buffer and Adam state tensors bit-equal {same}; bookkeeping "
+              f"equal {same_rest}; generator state equal {same_rng}")
+        assert trainer_r.restored_from == "latest", "the resumed run did not load `latest'"
+        assert same and same_rest and same_rng, "the restored state differs from the saved checkpoint"
+        trainer_r.train()
+        torch.cuda.synchronize()
+        _restore_streams(streams)
+        fwd_r, bwd_r = gl.launch_counts()
+        history_r = trainer_r.history
+        lik_r = sum(1 for h in history_r if not h[3])
+        print(f"[default] resumed: epochs {sorted({h[0] for h in history_r})}, {len(history_r)} steps "
+              f"({lik_r} with the likelihood), {len(captured_steps(trainer_r))} graph(s) captured, "
+              f"Gram/log-det launches (fwd, bwd) {fwd_r}, {bwd_r}; valid/loss at epochs "
+              f"{sorted(_scalar_steps(resumed_dir, 'valid/loss'))}")
+        assert [h[0] for h in history_r] == [54, 54, 55, 55], "the resumed run trained other epochs"
+        assert all(math.isfinite(h[1]) for h in history_r), "non-finite loss in the resumed run"
+        assert trainer_r.captured and len(captured_steps(trainer_r)) == 1, "the resumed epochs ran no graph"
+        assert fwd_r == bwd_r == lik_r == 4, "Gram/log-det launches != likelihood steps in the resumed run"
+
+        # Tested: the run dir's best checkpoint, FID on 50,000 samples.
+        best_epoch = min(valid, key=lambda e: (valid[e], e))
+        t0 = time.perf_counter()
+        (tested,) = cli_main(["--test", "--resume", run_dir])
+        test_s = time.perf_counter() - t0
+        _restore_streams(streams)
+        with open(os.path.join(run_dir, "metrics.json")) as f:
+            metrics = json.load(f)
+        print(f"[default] --test --resume: loaded `{tested['trainer'].restored_from}' after epoch "
+              f"{tested['trainer'].epoch} (best valid/loss at epoch {best_epoch}); metrics.json {metrics}; "
+              f"{test_s:.4f} s")
+        assert tested["trainer"].restored_from == "best_valid", "--test did not load `best_valid'"
+        assert tested["trainer"].epoch == best_epoch, "--test loaded another epoch than the best"
+        assert math.isfinite(metrics["fid"]) and metrics["feature_extractor"] == "raw-features"
+    finally:
+        _restore_streams(streams)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def capture(fn):
     """``fn`` warmed up once on a side stream, then captured: (graph, its
     outputs)."""
@@ -966,6 +1145,7 @@ def main():
     counts, step_ms = phase_train()
     phase_captured(step_ms)
     phase_warmup()
+    phase_default(smi)
     setup = phase_train_mnist()
     counts.update(phase_sample(setup))
     for k in kernels:

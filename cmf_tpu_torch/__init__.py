@@ -1,8 +1,8 @@
 """cmf_tpu_torch: canonical manifold flows in PyTorch, for one NVIDIA H100.
 
 The port of ``cmf_tpu`` (JAX) to PyTorch and hand-written CUDA kernels. It
-imports ``torch``, ``numpy`` and the standard library only: nothing of JAX and
-nothing of ``cmf_tpu``. Where it needs one of ``cmf_tpu``'s pure-Python
+imports ``torch``, ``numpy``, ``scipy`` (the FID's matrix square root) and the
+standard library only: nothing of JAX and nothing of ``cmf_tpu``. Where it needs one of ``cmf_tpu``'s pure-Python
 modules (config DSL, schemas, synthetic data, objective schedule) it keeps its
 own copy, held equal to the original by ``tests/test_torch_*.py``.
 

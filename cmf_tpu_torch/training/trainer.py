@@ -22,20 +22,40 @@ raises. The Hutchinson path, whose CG loop reads a flag on the host each
 iteration, a dequantized (image) model, which draws its noise, and the CPU
 run the step eagerly.
 
-Waiting for a later slice, and refused by ``experiment.setup_experiment``
-when a config asks for them: validation (FID-as-validation for tabular
-non-square runs), early stopping, checkpoints and the writer. The per-epoch
-test pass of a tabular non-square run without FID computes a constant zero
-placeholder (experiment.py:213-215) whose only reader is the writer, which
-``--nosave`` turns into a no-op; the port does not run it.
+Around the epochs, as the JAX trainer (trainer.py:230-241, 361-455): after
+each epoch, validation when early stopping is on (from
+``early_stopping_start_epoch``, every ``valid_frequency`` epochs; the FID
+when there is a FID function, else the mean of ``valid_loss_fn`` over the
+valid loader), with best/bad-epoch bookkeeping, a ``best_valid`` checkpoint
+and ``EarlyStop`` after more than ``max_bad_valid_epochs`` bad epochs; then
+the test pass every ``epochs_per_test`` epochs, counted so that it runs
+after epochs 1, 1 + epochs_per_test, ...; then a ``latest`` checkpoint.
+Non-finite losses leave ``nan_during_training`` / ``_validation`` /
+``_test`` checkpoints. Both passes run between epochs, outside the graphs;
+each FID reads the host once, and so does a checkpoint's copy to the host.
+The train telemetry (loss, grad norm, lr every 10 steps) is written from
+the epoch's one read. At start-up the trainer restores ``latest``, else
+``best_valid`` (``best_valid`` first when only testing), by copying into its
+tensors, so the graphs it captures later train the restored state.
 """
 
 import math
+import sys
 import time
+from contextlib import contextmanager
 
 import torch
 
 from ..densities.nonsquare import logdet_fallbacks
+from .checkpoint import make_checkpoint, restore_checkpoint
+from .writer import DummyWriter
+
+# Telemetry cadence of the train scalars (trainer.py:38-40).
+_STEPS_PER_WRITE = 10
+
+
+class EarlyStop(Exception):
+    pass
 
 
 def elbo_loss(density, x, flags, generator=None, **draws):
@@ -99,21 +119,59 @@ def _init_adam_state(optimizer):
 
 
 class Trainer:
-    def __init__(self, density, objective, optimizer, train_loader, max_epochs, generator=None):
+    def __init__(
+        self,
+        density,
+        objective,
+        optimizer,
+        train_loader,
+        max_epochs,
+        generator=None,
+        valid_loader=None,
+        test_loader=None,
+        writer=None,
+        early_stopping=False,
+        max_bad_valid_epochs=0,
+        valid_frequency=1,
+        epochs_per_test=1,
+        valid_loss_fn=None,    # (density, x) -> (B,) losses
+        test_metrics_fn=None,  # (density, x) -> {name: (B,) values}
+        fid_function=None,     # (density, generator) -> float
+        should_checkpoint_latest=True,
+        should_checkpoint_best_valid=True,
+        only_testing=False,
+    ):
         self.density = density
-        # Draws the dequantization noise and the Hutchinson probes; a
-        # generator on the device the density lives on.
+        # Draws the dequantization noise, the Hutchinson probes and the FID
+        # noise; a generator on the device the density lives on.
         self.generator = generator
         self.objective = objective
         self.optimizer = optimizer
         self.train_loader = train_loader
+        self.valid_loader = valid_loader
+        self.test_loader = test_loader
+        self.writer = writer if writer is not None else DummyWriter()
         self.max_epochs = max_epochs
+        self.early_stopping = early_stopping
+        self.early_stopping_start_epoch = objective.early_stopping_start_epoch
+        self.max_bad_valid_epochs = max_bad_valid_epochs
+        self.valid_frequency = valid_frequency
+        self.epochs_per_test = epochs_per_test
+        self.valid_loss_fn = valid_loss_fn
+        self.test_metrics_fn = test_metrics_fn
+        self.fid_function = fid_function
+        self.should_checkpoint_latest = should_checkpoint_latest
+        self.should_checkpoint_best_valid = should_checkpoint_best_valid
         self.params = [p for p in density.parameters() if p.requires_grad]
         _init_adam_state(optimizer)
+        self.best_valid_loss = float("inf")
+        self.num_bad_valid_epochs = 0
         self.epoch = 0
         self.iteration = 0
         # One entry per step taken: (epoch, loss, grad_norm, skip_likelihood).
         self.history = []
+        # Host-clock seconds by kind of work: name -> [calls, seconds].
+        self.timings = {}
         device = self.params[0].device
         # Every parameter's gradient, zero where the loss does not reach it
         # (the latent prior on a warmup step), as under jax.grad: Adam then
@@ -136,6 +194,26 @@ class Trainer:
         else:
             why = "the CPU" if device.type != "cuda" else "the step reads the host or draws noise"
             print(f"train step: eager ({why})", flush=True)
+
+        # Start-up restore (trainer.py:118-125), before any graph exists.
+        self.restored_from = None
+        first, second = ("best_valid", "latest") if only_testing else ("latest", "best_valid")
+        for tag in (first, second):
+            try:
+                self._load_checkpoint(tag)
+                break
+            except FileNotFoundError:
+                print(f"Did not find `{tag}' checkpoint.", file=sys.stderr)
+
+    @contextmanager
+    def _timed(self, name):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            entry = self.timings.setdefault(name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += time.perf_counter() - start
 
     def step(self, x, flags):
         """One optimizer step by this trainer's route. Returns (loss,
@@ -213,9 +291,17 @@ class Trainer:
         return _CapturedStep(graph, static_x, out)
 
     def train(self):
-        while self.epoch < self.max_epochs:
-            self.epoch += 1
-            self._train_epoch(self.epoch)
+        try:
+            while self.epoch < self.max_epochs:
+                self.epoch += 1
+                self._train_epoch(self.epoch)
+                if self.early_stopping:
+                    self._validate(self.epoch)
+                self._test_and_log(self.epoch)
+                if self.should_checkpoint_latest:
+                    self._save_checkpoint("latest")
+        except EarlyStop:
+            pass
 
     def _train_epoch(self, epoch):
         flags = self.objective.for_epoch(epoch)
@@ -225,14 +311,24 @@ class Trainer:
             raise NotImplementedError(
                 "a second optimizer group (m-flow) waits for a later slice of the port"
             )
-        start = time.perf_counter()
-        steps = [torch.stack(self.step(x, flags)) for x in self.train_loader]
-        # The epoch's host reads: its losses and grad norms, and the count
-        # of log-det fallbacks.
-        values = torch.stack(steps).tolist()
-        fallbacks = logdet_fallbacks()
+        with self._timed("train"):
+            start = time.perf_counter()
+            steps = [torch.stack(self.step(x, flags)) for x in self.train_loader]
+            # The epoch's host reads: its losses and grad norms, and the count
+            # of log-det fallbacks.
+            values = torch.stack(steps).tolist()
+            fallbacks = logdet_fallbacks()
         skip = bool(flags["skip_likelihood"])
         self.history += [(epoch, loss, norm, skip) for loss, norm in values]
+        # The reference's every-10-steps scalars, from the epoch's one read
+        # (trainer.py:282-296). The learning rate is constant.
+        lr = self.optimizer.param_groups[0]["lr"]
+        for j, (loss, norm) in enumerate(values):
+            i = self.iteration + j + 1
+            if i % _STEPS_PER_WRITE == 0:
+                self.writer.write_scalar("train/loss", loss, global_step=i)
+                self.writer.write_scalar("train/grad-norm", norm, global_step=i)
+                self.writer.write_scalar("train/lr", lr, global_step=i)
         self.iteration += len(values)
         print(
             f"epoch {epoch}: {len(values)} steps, last loss {values[-1][0]:.6g}, "
@@ -241,4 +337,95 @@ class Trainer:
             flush=True,
         )
         if not all(math.isfinite(loss) for loss, _ in values):
+            # The freeze kept the last finite state: checkpoint it.
+            self._save_checkpoint("nan_during_training")
             raise FloatingPointError(f"NaN/Inf loss during epoch {epoch}")
+
+    # ------------------------------------------------------------ evaluation
+    def _fid(self):
+        with self._timed("fid"):
+            return float(self.fid_function(self.density, self.generator))
+
+    def _run_eval(self, fn, loader):
+        """The mean of each of ``fn``'s per-example outputs over ``loader``:
+        sums stay where ``fn`` puts them, then one read."""
+        sums, counts = {}, {}
+        with torch.no_grad():
+            for x in loader:
+                for k, v in fn(self.density, x).items():
+                    sums[k] = v.sum() if k not in sums else sums[k] + v.sum()
+                    counts[k] = counts.get(k, 0) + v.numel()
+        if not sums:
+            return {}
+        values = torch.stack(list(sums.values())).tolist()
+        return {k: v / counts[k] for k, v in zip(sums, values)}
+
+    def _validate(self, epoch):
+        if epoch < self.early_stopping_start_epoch:
+            return
+        if epoch % self.valid_frequency != 0:
+            return
+
+        if self.fid_function is not None:
+            # FID stands in for the validation loss (trainer.py:367-371).
+            valid_loss = self._fid()
+        else:
+            valid_loss = self._run_eval(
+                lambda d, x: {"loss": self.valid_loss_fn(d, x)}, self.valid_loader
+            )["loss"]
+
+        self.writer.write_scalar("valid/loss", valid_loss, global_step=epoch)
+
+        if valid_loss < self.best_valid_loss:
+            print(f"Best validation loss {valid_loss} after epoch {epoch}")
+            self.num_bad_valid_epochs = 0
+            self.best_valid_loss = valid_loss
+            if self.should_checkpoint_best_valid:
+                self._save_checkpoint("best_valid")
+        else:
+            if not math.isfinite(valid_loss):
+                self._save_checkpoint("nan_during_validation")
+            self.num_bad_valid_epochs += 1
+            if self.num_bad_valid_epochs > self.max_bad_valid_epochs:
+                print(
+                    f"No validation improvement after {self.num_bad_valid_epochs} epochs. Terminating."
+                )
+                raise EarlyStop
+
+    def test(self):
+        """The test pass; with a FID function, its score, the feature
+        extractor and any sqrtm jitter it needed (trainer.py:398-422)."""
+        results = {}
+        if self.test_metrics_fn is not None:
+            results.update(self._run_eval(self.test_metrics_fn, self.test_loader))
+        if self.fid_function is not None:
+            results["fid"] = self._fid()
+            results["feature_extractor"] = getattr(self.fid_function, "feature_extractor", "unknown")
+            jitter = getattr(self.fid_function, "last_jitter", None)
+            if jitter:
+                results["fid_sqrtm_jitter"] = float(jitter)
+        return results
+
+    def _test_and_log(self, epoch):
+        if (epoch - 1) % self.epochs_per_test != 0:
+            return
+        for k, v in self.test().items():
+            if isinstance(v, str):  # provenance stamps are not scalars
+                self.writer.write_textfile(f"test_{k}", v)
+                continue
+            self.writer.write_scalar(f"test/{k}", v, global_step=epoch)
+            if not math.isfinite(v):
+                self._save_checkpoint("nan_during_test")
+
+    # ---------------------------------------------------------- checkpoints
+    def _save_checkpoint(self, tag):
+        if isinstance(self.writer, DummyWriter):
+            return  # it would drop the copy
+        with self._timed("checkpoint"):
+            self.writer.write_checkpoint(tag, make_checkpoint(self))
+
+    def _load_checkpoint(self, tag):
+        ckpt = self.writer.load_checkpoint(tag)
+        restore_checkpoint(self, ckpt)
+        self.restored_from = tag
+        print(f"Loaded checkpoint `{tag}' after epoch {ckpt['epoch']}", file=sys.stderr)

@@ -60,6 +60,25 @@ Phases, each of which fails the run on its own failure:
                   model, which must launch the coupler kernel once per
                   coupling inverse; the samples against the same noise decoded
                   through the conv modules.
+10. inception  -- the port's InceptionV3 (``random_state_dict(0)`` weights)
+                  on the JAX package's golden input against the golden
+                  features and against the same network on the CPU; ms for a
+                  chunk of 50 images.
+11. default-mnist -- the mnist CLI with the published defaults (FID on
+                  10,000 samples in chunks of 50 as the validation loss from
+                  the warm-up's end, a test every 10 epochs, random-conv
+                  proxy features) under ``--nosave``, cut to 7 epochs of 2
+                  batches with the warm-up from epoch 2 to 4: valid/loss at
+                  epochs 4-7 and test/fid at epoch 1 finite and stamped
+                  ``proxy``; 10 coupler kernel launches a ``sample(50)``, so
+                  2,000 a FID pass; then ``Trainer.test()`` at 50,000
+                  samples. Seconds of the run, its share outside training
+                  steps, ms per FID pass and its parts, the card's idle share
+                  over one pass.
+12. ood        -- ``density.ood`` of that model on 100 synthetic mnist and
+                  100 synthetic fashion-mnist test images, card against CPU
+                  on the same weights; the stump accuracies of the OOD
+                  battery's rule on the two outputs.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -151,6 +170,26 @@ DEFAULT_ARGV = [
     "--config", "max_epochs=53", "--config", "max_dataset_size=800", "--config", "seed=0",
 ]
 DEFAULT_RESUME_EPOCHS = 55
+# The mnist image model's default run (every published setting but these
+# cuts): 100 images (2 steps of 50), the warm-up from epoch 2 to 4 (so early
+# stopping, and the FID as the validation loss, from epoch 4), 7 epochs. The
+# FID keeps 10,000 samples in chunks of 50 and the test its 10-epoch period.
+# No run dir: the card has no matplotlib for the image visualiser's figure.
+MNIST_DEFAULT_ARGV = [
+    "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--nosave",
+    "--config", "max_dataset_size=100", "--config", "likelihood_warmup_start=2",
+    "--config", "likelihood_warmup_end=4", "--config", "max_epochs=7", "--config", "seed=0",
+]
+MNIST_TEST_SAMPLES = 50_000
+# InceptionV3 on the card against the golden features (tests/test_eval.py's
+# tolerance) and against the same network on the CPU: 94 fp32 conv layers,
+# each side summing in its own order.
+INCEPTION_GOLDEN_TOL = 2e-3
+INCEPTION_CPU_TOL = 1e-4
+# OOD features on the card against the CPU: the exact log-det of a 20x20
+# Gram of JVP columns through ten ResNet couplers, fp32 both sides.
+OOD_TOL = 1e-4
+OOD_IMAGES = 100
 TRAIN_MNIST_ARGV = [
     "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--nosave",
     "--config", "likelihood_warmup=False", "--config", "early_stopping=False",
@@ -1130,7 +1169,185 @@ def phase_sample(setup):
     conv_ms = (time.perf_counter() - t0) / n_calls * 1e3
     print(f"[sample] sample({MNIST_SAMPLE_BATCH}): {kernel_ms:.4f} ms per call through the kernel, "
           f"{conv_ms:.4f} ms through the conv modules (host clock, {n_calls} calls each)")
-    return {"COUPLER_LAUNCHES": launches}
+
+
+def phase_inception(smi):
+    import numpy as np
+    import torch
+    from cmf_tpu_torch.eval.inception_v3 import InceptionFeatures, InceptionV3, random_state_dict
+
+    golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                               "inception_pipeline_golden.npz")
+    golden = np.load(golden_path)["features"]
+    cpu = InceptionFeatures(InceptionV3.from_state_dict(random_state_dict(0)))
+    card = InceptionFeatures(InceptionV3.from_state_dict(random_state_dict(0))).cuda()
+    x = np.random.default_rng(42).integers(0, 256, (4, 1, 28, 28)).astype(np.float32)
+    with torch.inference_mode():
+        got = card(torch.tensor(x).cuda()).cpu().numpy()
+        ref = cpu(torch.tensor(x)).numpy()
+    golden_err = float(np.abs(got - golden).max())
+    cpu_err = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+    print(f"[inception] features {got.shape}: against the golden file max |err| {golden_err:.3e} "
+          f"(rtol = atol = {INCEPTION_GOLDEN_TOL:g}); against the CPU max err / max |feature| "
+          f"{cpu_err:.3e} (tol {INCEPTION_CPU_TOL:g})")
+    assert np.allclose(got, golden, rtol=INCEPTION_GOLDEN_TOL, atol=INCEPTION_GOLDEN_TOL), \
+        "InceptionV3 on the card disagrees with the golden features"
+    assert cpu_err <= INCEPTION_CPU_TOL, "InceptionV3 on the card disagrees with the CPU"
+    chunk = torch.randint(0, 256, (50, 1, 28, 28), generator=torch.Generator().manual_seed(0))
+    chunk = chunk.float().cuda()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: card(chunk), iters=20, warmup=3)
+    print(f"[inception] {smi}: {ms:.4f} ms a chunk of 50 mnist images (CUDA events, fp32, TF32 off), "
+          f"so {ms * 200:.4f} ms per 10,000 images (derived)")
+
+
+class _Recorded:
+    """Record what a ``DummyWriter`` is given (the CLI under ``--nosave``
+    writes through one), for the smoke to read the scalars back."""
+
+    def __init__(self):
+        from cmf_tpu_torch.training.writer import DummyWriter
+
+        self.cls, self.rows, self.saved = DummyWriter, [], {}
+
+    def __enter__(self):
+        rows = self.rows
+        for name in ("write_scalar", "write_textfile"):
+            self.saved[name] = getattr(self.cls, name)
+        self.cls.write_scalar = lambda w, tag, value, global_step=None: rows.append((tag, value, global_step))
+        self.cls.write_textfile = lambda w, tag, text: rows.append((tag, text, None))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+    def steps(self, tag):
+        return {step: value for t, value, step in self.rows if t == tag}
+
+
+def phase_default_mnist(smi):
+    """The mnist CLI with the published defaults under ``--nosave``, then
+    ``Trainer.test()`` at 50,000 samples."""
+    import torch
+    from cmf_tpu_torch.eval import fid, get_feature_fn
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import coupler_stack as cs
+
+    # The main path: the counts are read right after it.
+    with _Recorded() as rec:
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        (setup,) = cli_main(MNIST_DEFAULT_ARGV)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = cs.LAUNCHES
+    trainer, config = setup["trainer"], setup["config"]
+    history = trainer.history
+    valid, test_fid = rec.steps("valid/loss"), rec.steps("test/fid")
+    stamp = rec.steps("test_feature_extractor")
+    fid_n, fid_s = trainer.timings["fid"]
+    train_s = trainer.timings["train"][1]
+    chunk = config["test_batch_size"]
+    calls = config["num_fid_samples"] // chunk
+    print(f"[default-mnist] {trainer.epoch} epochs, {len(history)} steps "
+          f"({sum(1 for h in history if not h[3])} with the likelihood); losses {history[0][1]:.6g} -> "
+          f"{history[-1][1]:.6g}; valid/loss (FID) at epochs {sorted(valid)}: "
+          f"{', '.join(f'{v:.6g}' for _, v in sorted(valid.items()))}; test/fid at epochs "
+          f"{sorted(test_fid)}: {', '.join(f'{v:.6g}' for _, v in sorted(test_fid.items()))}; "
+          f"feature extractor {list(stamp.values())}; coupler kernel launches {launches} in {fid_n} FID "
+          f"passes")
+    assert all(math.isfinite(h[1]) for h in history), "non-finite loss in the mnist default run"
+    assert sorted(valid) == [4, 5, 6, 7], "valid/loss not written at epochs 4-7"
+    assert sorted(test_fid) == [1], "test/fid not written at epoch 1"
+    assert all(math.isfinite(v) for v in list(valid.values()) + list(test_fid.values())), "non-finite FID"
+    assert list(stamp.values()) == ["proxy"], "the FID is not stamped `proxy'"
+    assert fid_n == len(valid) + len(test_fid), "FID passes != validations + tests"
+    assert launches == fid_n * calls * MNIST_COUPLINGS, "coupler launches != 10 a sample call"
+    print(f"[default-mnist] {smi}: the run took {seconds:.4f} s; training epochs {train_s:.4f} s, so "
+          f"{1 - train_s / seconds:.4f} of the run's wall time outside training steps; "
+          f"{fid_s / fid_n * 1e3:.4f} ms per FID pass ({config['num_fid_samples']:,} samples, {fid_n} "
+          f"passes; host clock)")
+
+    # One FID pass alone: its launches, its time and its parts.
+    density, gen = setup["density"], torch.Generator(device=setup["device"]).manual_seed(1)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fid_function(density, gen)
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[default-mnist] one FID pass: {cs.LAUNCHES} coupler kernel launches ({calls} sample({chunk}) "
+          f"calls), {pass_ms:.4f} ms (host clock)")
+    assert cs.LAUNCHES == calls * MNIST_COUPLINGS, "a FID pass did not launch the kernel 10 times a call"
+    features = get_feature_fn(config, setup["device"])
+    sample_ms = host_ms(lambda: density.sample(chunk, generator=gen), 20)
+    x = density.sample(chunk, generator=gen)
+    with torch.inference_mode():
+        feature_ms = cuda_ms(lambda: features(x), iters=50, warmup=3)
+        stats = [fid.activation_statistics([density.sample(chunk, generator=gen) for _ in range(20)], features)
+                 for _ in range(2)]
+    sqrtm_ms = host_ms(lambda: fid.frechet_distance(*stats[0], *stats[1]), 3)
+    dim = stats[0][1].shape[0]
+    print(f"[default-mnist] {smi}: a FID pass's parts: sample({chunk}) {sample_ms:.4f} ms a call (host "
+          f"clock), {calls} a pass ({calls * sample_ms:.4f} ms); proxy features {feature_ms:.4f} ms a chunk "
+          f"(CUDA events), {calls * feature_ms:.4f} ms a pass; frechet_distance (scipy sqrtm of a "
+          f"{dim}x{dim} product on the host) {sqrtm_ms:.4f} ms (host clock)")
+    profile_steps(lambda *_: trainer.fid_function(density, gen), None, None, 1, "default-mnist",
+                  "one FID pass: ", unit="pass")
+
+    # The test pass of the run's model at 50,000 samples, as --test asks.
+    loader = trainer.test_loader if config.get("use_test_fid", False) else trainer.train_loader
+    trainer.fid_function = fid.get_fid_function({**config, "num_fid_samples": MNIST_TEST_SAMPLES}, loader,
+                                                features)
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = trainer.test()
+    test_s = time.perf_counter() - t0
+    print(f"[default-mnist] {smi}: Trainer.test() at {MNIST_TEST_SAMPLES:,} samples: {results}; "
+          f"{cs.LAUNCHES} coupler kernel launches; {test_s:.4f} s (host clock)")
+    assert math.isfinite(results["fid"]) and results["feature_extractor"] == "proxy"
+    assert cs.LAUNCHES == MNIST_TEST_SAMPLES // chunk * MNIST_COUPLINGS
+    return setup, launches
+
+
+def phase_ood(setup, smi):
+    """``density.ood`` of the default run's model, card against CPU."""
+    import numpy as np
+    import torch
+    from cmf_tpu_torch.data import get_image_datasets
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.training.experiment import best_stump_accuracy
+
+    card = setup["density"]
+    cpu = get_density(setup["schema"], x_shape=(1, 28, 28), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    outputs = {}
+    for dataset in ("mnist", "fashion-mnist"):
+        test_x = get_image_datasets(dataset, synthetic=True, seed=0)[2][0]
+        x = torch.tensor(test_x[:OOD_IMAGES].astype(np.float32))
+        xc = x.cuda()
+        with torch.no_grad():
+            card.ood(xc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = card.ood(xc)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            parts = [cpu.ood(xb) for xb in x.split(25)]
+            cpu_s = time.perf_counter() - t0
+        ref = {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+        errs = {k: rel_err(got[k].cpu(), ref[k]) for k in ref}
+        outputs[dataset] = np.stack([got["likelihood"].cpu().numpy(), got["reconstruction-error"].cpu().numpy()], 1)
+        print(f"[ood] {dataset}: {OOD_IMAGES} images, {card_ms:.4f} ms on the card (host clock, {smi}), "
+              f"{cpu_s:.2f} s on the CPU; likelihood mean {float(ref['likelihood'].mean()):.6g}, "
+              f"reconstruction error mean {float(ref['reconstruction-error'].mean()):.6g}; card vs CPU "
+              f"max err / max(1, max |ref|): {', '.join(f'{k} {e:.3e}' for k, e in errs.items())} "
+              f"(tol {OOD_TOL:g})")
+        assert np.isfinite(outputs[dataset]).all(), f"non-finite OOD features of {dataset}"
+        assert all(e <= OOD_TOL for e in errs.values()), f"OOD features of {dataset} disagree with the CPU"
+    for j, feature in enumerate(("likelihood", "reconstruction-error")):
+        acc = best_stump_accuracy(outputs["mnist"][:, j], outputs["fashion-mnist"][:, j])
+        print(f"[ood] stump accuracy, mnist against fashion-mnist, on the {feature}: {acc:.4f}")
 
 
 def main():
@@ -1147,7 +1364,11 @@ def main():
     phase_warmup()
     phase_default(smi)
     setup = phase_train_mnist()
-    counts.update(phase_sample(setup))
+    phase_sample(setup)
+    phase_inception(smi)
+    mnist_setup, coupler_launches = phase_default_mnist(smi)
+    counts["COUPLER_LAUNCHES"] = coupler_launches
+    phase_ood(mnist_setup, smi)
     for k in kernels:
         k["launches"] = counts[k.pop("_launches_key")]
         assert k["launches"] > 0, f"{k['name']} was never launched on its path"

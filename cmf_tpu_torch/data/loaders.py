@@ -53,8 +53,8 @@ class ArrayLoader:
             order = np.arange(n)
         x_dev = self._device_x()
         order = torch.as_tensor(order[: len(self) * self.batch_size], device=self.device)
-        for idx in order.split(self.batch_size):
-            yield x_dev.index_select(0, idx)
+        for b in range(len(self)):
+            yield x_dev.index_select(0, order[b * self.batch_size : (b + 1) * self.batch_size])
 
 
 def get_loaders(dataset, config, device, seed=0, synthetic=None, data_root=None):

@@ -15,6 +15,9 @@ same keys as the JAX package's ``{"params", "state"}`` trees, so
   fused coupler-stack kernel (``nets/core.py``). ``_sample`` /
   ``_fixed_sample`` are the same functions in whatever mode the caller is
   in: under ``torch.no_grad()`` they take the conv modules instead.
+* ``ood(x) -> {"likelihood", "reconstruction-error"}`` — each example's
+  likelihood term and reconstruction error (exact log-det), the OOD
+  battery's features; through the chain to the non-square head.
 * ``step_capturable`` — whether a training step's elbo can run inside a CUDA
   graph: it reads nothing on the host and draws no random numbers. A density
   is as capturable as the densities it holds; one that reads the host or
@@ -49,3 +52,6 @@ class Density(nn.Module):
 
     def decode(self, u):
         raise NotImplementedError(f"{type(self).__name__} is not part of a non-square chain")
+
+    def ood(self, x):
+        raise NotImplementedError(f"{type(self).__name__} has no OOD features")

@@ -30,6 +30,10 @@ class BijectionDensity(Density):
     def decode(self, u):
         return self.bijection.inverse_point(self.prior.decode(u))
 
+    def ood(self, x):
+        z, _ = self.bijection(x)
+        return self.prior.ood(z)
+
     def _sample(self, num_samples, generator=None):
         x, _ = self.bijection.inverse(self.prior._sample(num_samples, generator))
         return x

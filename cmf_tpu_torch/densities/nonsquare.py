@@ -147,9 +147,13 @@ class NonSquareHeadDensity(Density):
         add_diagonal_metric_reg=False,
         add_offdiagonal_metric_reg=False,
         skip_likelihood=False,
+        ood=False,
     ):
         """``generator`` draws the Hutchinson probes ε (B, d, S) unless the
-        caller passes them as ``hutchinson_eps``."""
+        caller passes them as ``hutchinson_eps``. With ``ood`` the likelihood
+        term and the reconstruction error, unweighted (nonsquare.py:141-188)."""
+        if ood:
+            assert self.log_jacobian_method == "cholesky" or not train
         prior_info = self.prior.elbo(x)
         z = prior_info["low_dim_x"]                 # (B, d)
         low_dim_elbo = prior_info["low_dim_elbo"]   # (B,)
@@ -181,12 +185,19 @@ class NonSquareHeadDensity(Density):
             recon_flat = self._decode_flat(z)
 
         recon_loss = ((recon_flat - x_flat) ** 2).sum(dim=-1) if add_reconstruction else 0.0
+        if ood:
+            return {"likelihood": likelihood_term, "reconstruction-error": recon_loss}
         elbo = (
             likelihood_wt * likelihood_term
             - self.regularization_param * recon_loss
             - metric_wt * metric_l1
         )
         return {"elbo": elbo}
+
+    def ood(self, x):
+        """The OOD features of ``x`` through the exact log-det
+        (nonsquare.py:411-413)."""
+        return self.elbo(x, train=False, ood=True)
 
     def _dense_decode_program(self):
         """The dense decode program of a flat chain, or None (cached)."""

@@ -32,6 +32,10 @@ class DequantizationDensity(Density):
     def decode(self, u):
         return self.density.decode(u)
 
+    def ood(self, x):
+        """No noise: the JAX package's wrapper passes ``ood`` straight on."""
+        return self.density.ood(x)
+
     def _sample(self, num_samples, generator=None):
         return self.density._sample(num_samples, generator)
 

@@ -9,8 +9,9 @@ one transfer, where scipy's ``sqrtm`` takes the d×d root. The formula and
 the precision are the JAX package's, so the numbers are too: fp32 with TF32
 off (``device.pin_fp32``), not fp64 and not a two-pass covariance.
 
-Image datasets take Inception features, which wait for a later slice of the
-port (ROADMAP module 4); only raw features are here.
+Image datasets map each chunk to features first (``eval/inception.py``: the
+InceptionV3, or the random-conv proxy), on the same device, and the sums are
+of the features; ``fid.feature_extractor`` stamps which extractor it was.
 """
 
 import warnings
@@ -19,18 +20,13 @@ import numpy as np
 import torch
 
 
-def _later_features():
-    return NotImplementedError(
-        "FID on image features (the Inception network and its random-conv proxy) waits for "
-        "a later slice of the port (ROADMAP module 4); set use_fid=False"
-    )
-
-
-def _accumulate(batches):
-    """(s1, s2, n) of the rows of ``batches`` in fp32, on their device."""
+def _accumulate(batches, feature_fn=None):
+    """(s1, s2, n) of the rows of ``batches`` (their features, with a
+    ``feature_fn``) in fp32, on their device."""
     n, s1, s2 = 0, None, None
     for batch in batches:
-        feats = batch.reshape(batch.shape[0], -1).to(torch.float32)
+        feats = batch if feature_fn is None else feature_fn(batch)
+        feats = feats.reshape(feats.shape[0], -1).to(torch.float32)
         b1 = feats.sum(dim=0)
         b2 = feats.T @ feats
         s1 = b1 if s1 is None else s1 + b1
@@ -50,10 +46,9 @@ def _mean_cov(s1, s2, n):
 
 
 def activation_statistics(batches_iter, feature_fn=None):
-    """Streaming mean and covariance over batches of raw features."""
-    if feature_fn is not None:
-        raise _later_features()
-    return _mean_cov(*_accumulate(batches_iter))
+    """Streaming mean and covariance over batches: of their rows, or of
+    ``feature_fn``'s (B, d) features of them."""
+    return _mean_cov(*_accumulate(batches_iter, feature_fn))
 
 
 def _sqrtm_real(sigma1, sigma2):
@@ -123,22 +118,24 @@ def get_fid_function(config, reference_loader, feature_fn=None):
     copy of the data on first use, and an inference tensor there would fail
     the first training step. A FID draws ``num_fid_samples // test_batch_size``
     chunks (at least one) of ``test_batch_size`` samples, as the JAX
-    package's scan does, and reads the host once.
+    package's scan does, under inference mode (the ResNet couplers take the
+    coupler kernel), maps each chunk to its features on the device where
+    there is a ``feature_fn``, and reads the host once.
     """
-    if feature_fn is not None:
-        raise _later_features()
     with torch.no_grad():
-        ref_mu, ref_cov = activation_statistics(iter(reference_loader))
+        ref_mu, ref_cov = activation_statistics(iter(reference_loader), feature_fn)
     batch_size = config["test_batch_size"]
     n_batches = max(config["num_fid_samples"] // batch_size, 1)
 
     def fid(density, generator):
         with torch.inference_mode():
             samples = sample_batches(density, generator, n_batches * batch_size, batch_size)
-            mu, cov = _mean_cov(*_accumulate(samples))
+            mu, cov = _mean_cov(*_accumulate(samples, feature_fn))
         score = frechet_distance(ref_mu, ref_cov, mu, cov)
         fid.last_jitter = frechet_distance.last_jitter
         return score
 
-    fid.feature_extractor = "raw-features"
+    fid.feature_extractor = (
+        "raw-features" if feature_fn is None else getattr(feature_fn, "extractor_kind", "unknown")
+    )
     return fid

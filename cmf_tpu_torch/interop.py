@@ -12,6 +12,11 @@ The state comes across too: the tail's ``permutation`` /
 ``inverse_permutation`` above all, since a permutation drawn anew would
 silently give another model. Every leaf on both sides must be matched, in
 shape, or this raises.
+
+The FID's feature extractors come across too: ``proxy_weights_from_jax``
+gives the port's random-conv proxy the JAX package's three conv weights, and
+``inception_from_npz`` loads the JAX package's InceptionV3 ``.npz`` into the
+port's network, validated first.
 """
 
 import numpy as np
@@ -60,3 +65,21 @@ def variables_from_jax(density, tree):
                     raise ValueError(f"{kind} `{path}': shape {value.shape} vs {tuple(t.shape)}")
                 t.copy_(torch.tensor(value, dtype=t.dtype))
     return density
+
+
+def proxy_weights_from_jax(w1, w2, w3):
+    """The port's random-conv proxy over the JAX package's weights (numpy
+    arrays, OIHW, as ``cmf_tpu/eval/inception.py`` draws them)."""
+    from .eval.inception import ProxyFeatures
+
+    return ProxyFeatures(*(np.array(w, np.float32) for w in (w1, w2, w3)))
+
+
+def inception_from_npz(path):
+    """The port's InceptionV3 (on the CPU, in eval mode) over the weights of
+    a ``.npz`` in the JAX package's layout; ``validate_params`` first."""
+    from .eval.inception_v3 import InceptionV3
+
+    with np.load(path) as raw:
+        arrays = {k: raw[k] for k in raw.files}
+    return InceptionV3.from_state_dict(arrays)

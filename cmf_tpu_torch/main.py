@@ -1,10 +1,12 @@
 """CLI for the port: ``python -m cmf_tpu_torch --model non-square --dataset
 {miniboone,mnist} --synthetic-data --config key=value ... [--device cpu]``,
-then ``--resume <run dir>`` to train on, or ``--test --resume <run dir>``.
+then ``--resume <run dir>`` to train on, ``--test --resume <run dir>``, or
+``--test-ood --resume <run dir>`` (the OOD battery of an image run).
 
 The flags and the ``--config key=value`` mini-language are those of the JAX
 package's ``main.py`` (values typed by ``ast.literal_eval``), for the subset
-the port carries so far: training, resuming and the test pass. ``--resume``
+the port carries so far: training, resuming, the test pass and the OOD
+battery. ``--resume``
 reads the run's ``config.json`` and ignores the other settings. Without
 ``--device cpu`` it runs on the card, and raises where there is none.
 """
@@ -49,6 +51,7 @@ def build_parser():
     parser.add_argument("--test", action="store_true", help="Test model and exit instead of training.")
     parser.add_argument("--overwrite-metrics", action="store_true")
     parser.add_argument("--test-fid", action="store_true", help="Use test dataset for FID.")
+    parser.add_argument("--test-ood", action="store_true", help="Test out-of-distribution metrics.")
     parser.add_argument("--synthetic-data", action="store_true",
                         help="Use shape-matched synthetic stand-ins for tabular and image data.")
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
@@ -59,11 +62,12 @@ def build_parser():
 def main(argv=None):
     """Returns one result per job: the experiment's setup when training;
     when testing, ``test_and_visualize``'s (the results under
-    ``"results"``)."""
+    ``"results"``); with ``--test-ood``, ``{"ood": {(label, split): array},
+    "classification": {"<split>/<feature>": accuracy}}``."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if (args.test or args.test_fid) and args.resume is None:
-        parser.error("--test and --test-fid need --resume <run dir>")
+    if (args.test or args.test_fid or args.test_ood) and args.resume is None:
+        parser.error("--test, --test-fid and --test-ood need --resume <run dir>")
     if args.resume is None:
         if args.model is None or args.dataset is None:
             parser.error("--model and --dataset are required without --resume")
@@ -101,7 +105,7 @@ def main(argv=None):
     if not (should_train or args.test):
         return []
 
-    from .training import test_and_visualize, train
+    from .training import generate_ood_metrics, ood_classification, test_and_visualize, train
 
     results = []
     for c in grid:
@@ -113,6 +117,9 @@ def main(argv=None):
                     config=dict(c), resume_dir=args.resume, overwrite=args.overwrite_metrics,
                     test_fid=args.test_fid, device=args.device,
                 ))
+            elif args.test_ood:
+                ood = generate_ood_metrics(config=dict(c), resume_dir=args.resume, device=args.device)
+                results.append({"ood": ood, "classification": ood_classification(args.resume)})
             else:
                 results.append(train(config=dict(c), resume_dir=args.resume, device=args.device))
     return results

@@ -110,7 +110,7 @@ class ResNet(nn.Module):
         super().__init__()
         if use_batchnorm:
             raise NotImplementedError(
-                "the ResNet coupler with batch-norm waits for a later slice of the port"
+                "the ResNet coupler with batch-norm waits for a later slice of the port (ROADMAP module 6)"
             )
         hidden = list(hidden_channels)
         self.c_hidden = hidden[0] if hidden else c_out

@@ -1,9 +1,10 @@
-"""Experiment setup and the train and test entry points
+"""Experiment setup and the train, test and OOD entry points
 (``cmf_tpu/training/experiment.py`` in torch).
 
 Setup follows experiment.py:148-302: loaders, schema, density, objective,
-optimizer, writer, the validation and test closures, the FID function and
-the trainer. Adam is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``,
+optimizer, writer, the visualiser, the validation and test closures, the FID
+function (on image data over the features of ``eval/inception.py``) and the
+trainer. Adam is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``,
 the same update as optax ``scale_by_adam`` followed by
 ``scale_by_learning_rate`` (experiment.py:89-131).
 
@@ -14,15 +15,19 @@ A config that asks for something this slice does not carry raises
 import json
 import os
 import subprocess
+import warnings
 
+import numpy as np
 import torch
 
+from .. import viz
 from ..config import get_schema
 from ..data import get_loaders
 from ..data.image import DATASET_SHAPES as IMAGE_SHAPES
 from ..data.tabular import DATASET_SHAPES as TABULAR_SHAPES
 from ..device import pin_fp32, resolve_device
 from ..eval.fid import get_fid_function
+from ..eval.inception import get_feature_fn
 from ..models import get_density
 from .objectives import get_objective
 from .trainer import Trainer
@@ -31,50 +36,29 @@ from .writer import DummyWriter, Writer, check_checkpoint_backend
 FID_DATASETS = list(IMAGE_SHAPES) + list(TABULAR_SHAPES)
 
 
-def _later(what, hint=""):
-    return NotImplementedError(f"{what} waits for a later slice of the port{hint}")
-
-
-def has_visualizer(config):
-    """Whether the JAX package's ``get_visualizer`` (viz/__init__.py:14-69)
-    gives a visualiser that draws, not ``DummyDensityVisualizer``: every image
-    dataset, and non-square tabular data of 2, 3 (d ≤ 3), 4 or 6 features."""
-    dataset = config["dataset"]
-    if dataset in IMAGE_SHAPES:
-        return True
-    dim = TABULAR_SHAPES[dataset][0] if dataset in TABULAR_SHAPES else None
-    non_square = config.get("model") == "non-square" or config.get("non_square", False)
-    if dim == 2:
-        return True
-    if dim == 3:
-        return non_square and config.get("latent_dimension") in (1, 2, 3)
-    return dim in (4, 6) and non_square
+def _later(what):
+    return NotImplementedError(f"{what} waits for a later slice of the port")
 
 
 def check_supported(config, write_to_disk=True):
     """Raise for every config entry that asks for what the port lacks."""
     if not config.get("non_square", False):
-        raise _later("training a square flow")
+        raise _later("training a square flow (ROADMAP module 8)")
     if config.get("m_flow", False):
-        raise _later("the M-flow baseline (m_flow=True)")
+        raise _later("the M-flow baseline (m_flow=True, ROADMAP module 8)")
     if config.get("opt", "adam") != "adam":
-        raise _later(f"optimizer `{config['opt']}'")
+        raise _later(f"optimizer `{config['opt']}' (ROADMAP module 8)")
     if config.get("lr_schedule", "none") != "none":
-        raise _later(f"lr schedule `{config['lr_schedule']}'")
+        raise _later(f"lr schedule `{config['lr_schedule']}' (ROADMAP module 8)")
     if config.get("max_grad_norm") is not None:
-        raise _later("gradient clipping (max_grad_norm)")
+        raise _later("gradient clipping (max_grad_norm, ROADMAP module 8)")
     if config.get("weight_decay", 0.0):
-        raise _later("weight decay")
+        raise _later("weight decay (ROADMAP module 8)")
     if config.get("compute_dtype", "float32") != "float32":
-        raise _later(f"compute_dtype `{config['compute_dtype']}'")
-    if config.get("use_fid", False) and config["dataset"] in IMAGE_SHAPES:
-        raise _later("FID on image features (ROADMAP module 4)", "; set use_fid=False")
+        raise _later(f"compute_dtype `{config['compute_dtype']}' (ROADMAP module 7)")
     if write_to_disk and not config.get("nosave", False):
         check_checkpoint_backend(config.get("checkpoint_backend", "pickle"))
-        if has_visualizer(config):
-            raise _later(
-                f"the visualiser of `{config['dataset']}' (ROADMAP module 9)", "; pass --nosave"
-            )
+        viz.check_visualizer(config)
 
 
 def make_optimizer(config, params):
@@ -119,9 +103,9 @@ def _make_writer(config, resume_dir, write_to_disk):
 
 
 def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True, device=None):
-    """config → {"density", "trainer", "writer", "train_loader", "schema",
-    "device", "config"}. ``device`` is ``None`` for the card (raises without
-    one) or ``"cpu"``. The weights come from a CPU generator seeded with
+    """config → {"density", "trainer", "writer", "visualizer",
+    "train_loader", "schema", "device", "config"}. ``device`` is ``None``
+    for the card (raises without one) or ``"cpu"``. The weights come from a CPU generator seeded with
     ``config["seed"]``; the train loop's draws (dequantization, Hutchinson
     probes, FID noise) from a generator on ``device`` with the same seed.
     With ``resume_dir`` the writer writes into that run dir, and the
@@ -142,6 +126,7 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     generator = torch.Generator().manual_seed(seed)
     density = get_density(schema, x_shape=train_loader.x_shape, device=device, generator=generator)
     writer = _make_writer(config, resume_dir, write_to_disk)
+    visualizer = viz.get_visualizer(config, writer, x_shape=tuple(train_loader.x_shape))
 
     # Loss closures (experiment.py:211-215). Every dataset the port loads is
     # a FID dataset.
@@ -151,7 +136,21 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     fid_function = None
     if config.get("use_fid", False):
         loader = test_loader if config.get("use_test_fid", False) else train_loader
-        fid_function = get_fid_function(config, loader)
+        feature_fn = None
+        if config["dataset"] in IMAGE_SHAPES:
+            feature_fn = get_feature_fn(config, device)
+            if feature_fn.extractor_kind == "proxy" and config["early_stopping"] and not testing:
+                # FID stands in for the validation loss (experiment.py:241-267).
+                warnings.warn(
+                    "FID-as-validation is using the random-conv PROXY "
+                    "extractor: early stopping / best-checkpoint selection "
+                    "will follow a relative tracking signal, not "
+                    "published-comparable FID. Provide "
+                    "CMF_TPU_INCEPTION_WEIGHTS (or torchvision weights) for "
+                    "real-FID model selection.",
+                    stacklevel=2,
+                )
+        fid_function = get_fid_function(config, loader, feature_fn)
 
     trainer = Trainer(
         density=density,
@@ -163,6 +162,7 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
         valid_loader=valid_loader,
         test_loader=test_loader,
         writer=writer,
+        visualizer=visualizer,
         early_stopping=config["early_stopping"],
         max_bad_valid_epochs=config["max_bad_valid_epochs"],
         valid_frequency=2 if config.get("m_flow", False) else 1,
@@ -178,6 +178,7 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
         "density": density,
         "trainer": trainer,
         "writer": writer,
+        "visualizer": visualizer,
         "train_loader": train_loader,
         "schema": schema,
         "device": device,
@@ -211,7 +212,8 @@ def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, devi
     """The test pass of a finished run (experiment.py:333-355): FID on
     50,000 samples, from the ``best_valid`` checkpoint, else ``latest``;
     skipped when ``metrics.json`` exists unless ``overwrite``; the results
-    go to ``metrics.json``. Returns the setup, with the results under
+    go to ``metrics.json``; then, for image data, the visualiser with the
+    run dir as its folder. Returns the setup, with the results under
     ``"results"`` (only those, when skipped)."""
     config = {**config, "num_fid_samples": 50_000}
     if test_fid:
@@ -223,11 +225,94 @@ def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, devi
         with open(metrics_path) as f:
             return {"results": json.load(f)}
 
-    if config["dataset"] not in TABULAR_SHAPES and has_visualizer(config):
-        raise _later(f"the visualiser of `{config['dataset']}' (ROADMAP module 9)")
+    # The JAX package draws into the run dir after a test of data that is
+    # not tabular; a visualiser the port lacks raises here, before any work.
+    visualizer = None
+    if config["dataset"] not in TABULAR_SHAPES:
+        visualizer = viz.get_visualizer(config, DummyWriter(), write_folder=resume_dir)
     setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
     results = setup["trainer"].test()
+    if visualizer is not None:
+        visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
     with open(metrics_path, "w") as f:
         json.dump(results, f, indent=4)
     setup["results"] = results
     return setup
+
+
+OOD_MAPPING_TABLE = {
+    "mnist": "fashion-mnist",
+    "fashion-mnist": "mnist",
+    "cifar10": "svhn",
+    "svhn": "cifar10",
+}
+
+
+def generate_ood_metrics(config, resume_dir, device=None):
+    """The OOD battery's four passes (experiment.py:358-400): the run's
+    dataset and its OOD counterpart, each over its train and its test split,
+    with the exact log-det and batches of 1000 forced. Each pass dumps
+    ``ood_metrics_<split>_<in|out>.npy`` (likelihood, reconstruction error)
+    into the run dir and a ``ood_metrics_<dataset>_train=<bool>.json``
+    summary. The train loader drops its last partial batch, so a train split
+    of fewer than 1000 rows gives no batch and the pass raises, as in the JAX
+    package. Returns {(label, split): array}."""
+    base = {
+        **config,
+        "log_jacobian_method": "cholesky",
+        "train_batch_size": 1000,
+        "valid_batch_size": 1000,
+        "test_batch_size": 1000,
+    }
+    in_dataset = config["dataset"]
+    out_dataset = OOD_MAPPING_TABLE[in_dataset]
+    results = {}
+    for dataset, label in [(in_dataset, "in"), (out_dataset, "out")]:
+        for use_train, split in [(True, "train"), (False, "test")]:
+            cfg = {**base, "dataset": dataset}
+            setup = setup_experiment(cfg, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
+            trainer = setup["trainer"]
+            loader = trainer.train_loader if use_train else trainer.test_loader
+            writer = Writer(logdir=resume_dir, make_subdir=False, tee=False)
+            trainer.writer = writer
+            arr = trainer.test_ood(loader, f"ood_metrics_{split}_{label}")
+            results[(label, split)] = arr
+            writer.write_json(
+                f"ood_metrics_{dataset}_train={use_train}",
+                {
+                    "likelihood_mean": float(np.nanmean(arr[:, 0])),
+                    "reconstruction_error_mean": float(np.nanmean(arr[:, 1])),
+                    "n": int(arr.shape[0]),
+                },
+            )
+    return results
+
+
+def best_stump_accuracy(feat_in, feat_out):
+    """The best accuracy of a depth-1 stump (one threshold, either way
+    round) that tells ``feat_in`` (label 0) from ``feat_out`` (label 1)."""
+    values = np.concatenate([feat_in, feat_out])
+    labels = np.concatenate([np.zeros(len(feat_in)), np.ones(len(feat_out))])
+    order = np.argsort(values)
+    labels = labels[order]
+    n = len(labels)
+    ones_left = np.cumsum(labels)
+    total_ones = ones_left[-1]
+    idx = np.arange(1, n + 1)
+    acc_a = ((idx - ones_left) + (total_ones - ones_left)) / n
+    acc_b = 1 - acc_a
+    return float(max(acc_a.max(), acc_b.max()))
+
+
+def ood_classification(resume_dir):
+    """Depth-1 stumps on the likelihood and on the reconstruction error of
+    the four dumps (experiment.py:403-431): {"<split>/<feature>": accuracy}."""
+    results = {}
+    for split in ("train", "test"):
+        arr_in = np.load(os.path.join(resume_dir, f"ood_metrics_{split}_in.npy"))
+        arr_out = np.load(os.path.join(resume_dir, f"ood_metrics_{split}_out.npy"))
+        for j, feature in enumerate(("likelihood", "reconstruction-error")):
+            acc = best_stump_accuracy(arr_in[:, j], arr_out[:, j])
+            results[f"{split}/{feature}"] = acc
+            print(f"OOD classification rate ({split}, {feature}): {acc:.4f}")
+    return results

@@ -29,7 +29,8 @@ when there is a FID function, else the mean of ``valid_loss_fn`` over the
 valid loader), with best/bad-epoch bookkeeping, a ``best_valid`` checkpoint
 and ``EarlyStop`` after more than ``max_bad_valid_epochs`` bad epochs; then
 the test pass every ``epochs_per_test`` epochs, counted so that it runs
-after epochs 1, 1 + epochs_per_test, ...; then a ``latest`` checkpoint.
+after epochs 1, 1 + epochs_per_test, ..., each followed by the visualiser;
+then a ``latest`` checkpoint.
 Non-finite losses leave ``nan_during_training`` / ``_validation`` /
 ``_test`` checkpoints. Both passes run between epochs, outside the graphs;
 each FID reads the host once, and so does a checkpoint's copy to the host.
@@ -130,6 +131,7 @@ class Trainer:
         valid_loader=None,
         test_loader=None,
         writer=None,
+        visualizer=None,
         early_stopping=False,
         max_bad_valid_epochs=0,
         valid_frequency=1,
@@ -151,6 +153,7 @@ class Trainer:
         self.valid_loader = valid_loader
         self.test_loader = test_loader
         self.writer = writer if writer is not None else DummyWriter()
+        self.visualizer = visualizer
         self.max_epochs = max_epochs
         self.early_stopping = early_stopping
         self.early_stopping_start_epoch = objective.early_stopping_start_epoch
@@ -416,6 +419,25 @@ class Trainer:
             self.writer.write_scalar(f"test/{k}", v, global_step=epoch)
             if not math.isfinite(v):
                 self._save_checkpoint("nan_during_test")
+        if self.visualizer is not None:
+            self.visualizer.visualize(self.density, epoch)
+
+    def test_ood(self, loader, write_tag):
+        """The OOD pass (trainer.py:424-441): each example's likelihood term
+        and reconstruction error, under ``torch.no_grad()`` (not inference
+        mode: the exact log-det pushes JVP tangents through the decode,
+        which the forward-only coupler kernel does not carry); one host read,
+        then an (N, 2) ``.npy`` dump through the writer."""
+        buffers = {}
+        with torch.no_grad():
+            for x in loader:
+                for k, v in self.density.ood(x).items():
+                    buffers.setdefault(k, []).append(v)
+        likelihoods = torch.cat(buffers["likelihood"])
+        recon = torch.cat(buffers["reconstruction-error"])
+        arr = torch.stack([likelihoods, recon], dim=1).cpu().numpy()
+        self.writer.write_numpy(write_tag, arr)
+        return arr
 
     # ---------------------------------------------------------- checkpoints
     def _save_checkpoint(self, tag):

@@ -4,7 +4,8 @@ json/text/numpy artifacts, atomic checkpoints.
 As the JAX package's writer: timestamped run dirs, with a numbered suffix
 for launches in the same second; ``<group>/<tag>`` scalars, one JSON line
 each in ``scalars.jsonl`` (the same bytes for the same calls), and to
-TensorBoard if ``torch.utils.tensorboard`` imports; stdout and stderr teed
+TensorBoard if ``torch.utils.tensorboard`` imports; images to TensorBoard
+only, figures to ``<tag>.pdf`` and TensorBoard; stdout and stderr teed
 into the run dir; a ``DummyWriter`` that writes nothing but still loads
 checkpoints from ``logdir``.
 
@@ -110,6 +111,16 @@ class Writer:
         if self._tb is not None:
             self._tb.add_scalar(self._tag(tag), value, global_step=global_step)
 
+    def write_image(self, tag, image_chw, global_step=None):
+        if self._tb is not None:
+            self._tb.add_image(self._tag(tag), image_chw, global_step=global_step)
+
+    def write_figure(self, tag, figure, global_step=None):
+        """A matplotlib figure to ``<tag>.pdf`` in the run dir."""
+        figure.savefig(os.path.join(self.logdir, f"{tag.replace('/', '_')}.pdf"))
+        if self._tb is not None:
+            self._tb.add_figure(self._tag(tag), figure, global_step=global_step)
+
     def write_json(self, tag, data):
         with open(os.path.join(self.logdir, f"{tag}.json"), "w") as f:
             json.dump(data, f, indent=4)
@@ -148,6 +159,12 @@ class DummyWriter:
         self.logdir = logdir
 
     def write_scalar(self, tag, value, global_step=None):
+        pass
+
+    def write_image(self, tag, image_chw, global_step=None):
+        pass
+
+    def write_figure(self, tag, figure, global_step=None):
         pass
 
     def write_json(self, tag, data):

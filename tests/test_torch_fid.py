@@ -138,8 +138,3 @@ def test_reference_pass_leaves_the_train_loader_trainable():
     w = torch.ones(4, requires_grad=True)
     (next(iter(loader)) * w).sum().backward()  # autograd may save the batch
     assert w.grad is not None
-
-
-def test_image_features_wait_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="module 4"):
-        fid.get_fid_function({"num_fid_samples": 1, "test_batch_size": 1}, [], feature_fn=lambda x: x)

@@ -9,6 +9,7 @@ import optax
 import pytest
 import torch
 
+from cmf_tpu.config import expand_grid, get_config
 from cmf_tpu.data.loaders import ArrayLoader as JaxArrayLoader
 from cmf_tpu.data.loaders import get_loaders as jax_get_loaders
 from cmf_tpu.training.objectives import get_objective as jax_get_objective
@@ -116,21 +117,40 @@ def test_get_loaders_matches_with_dataset_cap():
     assert ours[0].num_examples == 500
 
 
-@pytest.mark.parametrize(
-    "key,value",
-    [("dataset", "mnist"), ("dataset", "power"), ("checkpoint_backend", "orbax"), ("m_flow", True),
-     ("lr_schedule", "cosine"), ("max_grad_norm", 1.0), ("opt", "adamax"),
-     ("compute_dtype", "bfloat16")],
-)
-def test_unported_config_raises(key, value):
+_UNPORTED = [
+    ({"dataset": "mnist", "test_metric": True}, "dataset-mnist-test_metric-True"),
+    ({"dataset": "power"}, "dataset-power"),
+    ({"checkpoint_backend": "orbax"}, "checkpoint_backend-orbax"),
+    ({"m_flow": True}, "m_flow-True"),
+    ({"lr_schedule": "cosine"}, "lr_schedule-cosine"),
+    ({"max_grad_norm": 1.0}, "max_grad_norm-1.0"),
+    ({"opt": "adamax"}, "opt-adamax"),
+    ({"compute_dtype": "bfloat16"}, "compute_dtype-bfloat16"),
+]
+
+
+@pytest.mark.parametrize("overrides", [o for o, _ in _UNPORTED], ids=[i for _, i in _UNPORTED])
+def test_unported_config_raises(overrides):
     """The flagship's published defaults pass (a run dir, early stopping,
-    FID). Still refused: FID on mnist (its Inception features), power's
-    visualiser into a run dir, the orbax checkpoint backend, and the rest."""
+    FID), and so do mnist's. Still refused: mnist's metric analysis
+    (module 9) and power's visualiser into a run dir, the orbax checkpoint
+    backend, and the rest."""
     config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)
+    check_supported({**config, "dataset": "mnist"})
     with pytest.raises(NotImplementedError, match="later slice|JAX package's backend"):
-        check_supported({**config, key: value})
+        check_supported({**config, **overrides})
+
+
+def test_mnist_published_defaults_pass():
+    """The image model's default run: a run dir, early stopping and FID on
+    image features, with every other published setting."""
+    config = expand_grid(get_config("mnist", "non-square", use_baseline=False))[0]
+    config = {**config, "model": "non-square", "dataset": "mnist"}
+    assert config["use_fid"] and config["early_stopping"] and not config.get("nosave")
+    assert config["num_fid_samples"] == 10_000 and config["epochs_per_test"] == 10
+    check_supported(config)
 
 
 CLI_ARGS = [

@@ -22,14 +22,26 @@ Phases, each of which fails the run on its own failure:
                   coupler kernel both its 3xTF32 tensor-core bound and the
                   fp32-pipe bound, its launch plan, and cuDNN with TF32 as
                   an aside in other numerics).
-4. train       -- the port's CLI trains miniboone non-square at full width
+4. kernels-small -- both Gram/log-det kernels against their plain versions
+                  at the 2-D zoo's shapes (d = 1, 2, 6; D = 2, 3, 6; B up to
+                  5000 and a tail warp): the forward, autograd through each
+                  with a loss on the Gram, and the backward kernel with a
+                  random Ḡ, with ḡ_ld random and zero, on columns with
+                  singular values in [0.5, 2]; the forward and its plain
+                  version on Gaussian columns at d = D = 6 against fp64
+                  (both finite where fp32 Cholesky cannot break down, the
+                  kernel's log-det error within a multiple of the plain
+                  version's); times,
+                  bounds and the library yardstick at the sphere's and the
+                  battery's shape.
+5. train       -- the port's CLI trains miniboone non-square at full width
                   with the likelihood on from step 1, one CUDA graph replay a
                   step after the first; the Gram/log-det kernels' launch
                   counts, counted on the device and so under replay, must
                   equal the likelihood steps, one each a replay; step time and idle share of the captured and the
                   eager route; then one step on the card against the same
                   step on the CPU.
-5. captured    -- 10 captured steps against 10 eager steps of the same step
+6. captured    -- 10 captured steps against 10 eager steps of the same step
                   function from the same weights on the same batches (losses
                   and every parameter and Adam state tensor within 1e-6
                   relative); one eager exact step under
@@ -39,10 +51,10 @@ Phases, each of which fails the run on its own failure:
                   captured on a Jacobian with zero rows must take the jittered
                   fallback at the eager jitter level with a finite gradient;
                   the fallback's own cost a step.
-6. warmup      -- the miniboone CLI with its default likelihood warm-up for
+7. warmup      -- the miniboone CLI with its default likelihood warm-up for
                   27 epochs of 2 batches: two flag keys, one graph each,
                   launches equal to the likelihood steps.
-7. default     -- the flagship's default run: the miniboone CLI with the
+8. default     -- the flagship's default run: the miniboone CLI with the
                   published defaults (a run dir, early stopping from epoch
                   50, FID on 10,000 samples as the validation loss, a test
                   pass every 5 epochs, ``latest`` and ``best_valid``
@@ -52,19 +64,35 @@ Phases, each of which fails the run on its own failure:
                   then ``--test --resume`` from ``best_valid``. Seconds of
                   the run, ms per FID pass and per checkpoint save, and the
                   share of the run outside training steps.
-8. train-mnist -- the CLI trains the mnist non-square model (Hutchinson + CG)
+9. default-sphere -- the README's first command, sphere with the published
+                  defaults under ``--nosave`` for 60 epochs of 10 steps:
+                  valid/loss (-elbo) every epoch and test/loss at epochs 1
+                  and 51 finite; one graph; Gram/log-det launches equal to
+                  the steps (backward) and the steps plus the evaluation
+                  batches (forward); ms a step, the device's idle share over
+                  20 back-to-back replays, the run's seconds
+                  and its share outside training; a card step against the
+                  CPU; 10 captured against 10 eager steps.
+10. cmf-battery -- hemisphere-2-6 at the CMF-vs-RNF battery's protocol (d=6,
+                  lr 0.001) for 30 epochs an arm, g_ij_loss on and off: each
+                  trained model's canonical-metric summary and MACS on the
+                  card against the CPU; the CMF arm's step against the CPU
+                  and its captured steps against eager ones; the same two
+                  checks for miniboone with g_ij_loss (the README's second
+                  command).
+11. train-mnist -- the CLI trains the mnist non-square model (Hutchinson + CG)
                   at full width for 10 steps; then one step on the card
                   against the same step on the CPU, on the same weights,
                   dequantization noise and Hutchinson probes.
-9. sample      -- ``sample(250)`` and ``fixed_sample()`` of the trained mnist
+12. sample     -- ``sample(250)`` and ``fixed_sample()`` of the trained mnist
                   model, which must launch the coupler kernel once per
                   coupling inverse; the samples against the same noise decoded
                   through the conv modules.
-10. inception  -- the port's InceptionV3 (``random_state_dict(0)`` weights)
+13. inception  -- the port's InceptionV3 (``random_state_dict(0)`` weights)
                   on the JAX package's golden input against the golden
                   features and against the same network on the CPU; ms for a
                   chunk of 50 images.
-11. default-mnist -- the mnist CLI with the published defaults (FID on
+14. default-mnist -- the mnist CLI with the published defaults (FID on
                   10,000 samples in chunks of 50 as the validation loss from
                   the warm-up's end, a test every 10 epochs, random-conv
                   proxy features) under ``--nosave``, cut to 7 epochs of 2
@@ -75,7 +103,7 @@ Phases, each of which fails the run on its own failure:
                   samples. Seconds of the run, its share outside training
                   steps, ms per FID pass and its parts, the card's idle share
                   over one pass.
-12. ood        -- ``density.ood`` of that model on 100 synthetic mnist and
+15. ood        -- ``density.ood`` of that model on 100 synthetic mnist and
                   100 synthetic fashion-mnist test images, card against CPU
                   on the same weights; the stump accuracies of the OOD
                   battery's rule on the two outputs.
@@ -100,6 +128,21 @@ MAIN_SHAPE = (21, 400, 43)
 # of shared memory); B=1; and a B that is no multiple of the backward's
 # warps a block (a tail warp).
 EDGE_SHAPES = [(1, 400, 43), (32, 400, 128), (21, 1, 43), (21, 401, 43)]
+# The 2-D zoo's shapes (d, B, D): a 1-D latent of 2-D data, the sphere
+# (d=2, D=3) at the train and valid batch and at its test split's one batch
+# of 5000, the CMF-vs-RNF battery's d=6, D=6, and a tail warp. The two
+# timed are the sphere's and the battery's train step.
+SMALL_SHAPES = [(1, 1000, 2), (2, 1000, 3), (2, 5000, 3), (6, 1000, 6), (6, 1001, 6)]
+SMALL_TIMED = [(2, 1000, 3), (6, 1000, 6)]
+# The battery's d = D = 6 on Gaussian columns: a square J's Gram can be
+# conditioned past what fp32 resolves. Both forward versions are held
+# against fp64 there: finite wherever cond(G) is below the bound under which
+# an fp32 Cholesky cannot break down, 1 / (20 d^1.5 eps) (Higham, Accuracy
+# and Stability of Numerical Algorithms, Thm 10.7), and the kernel's log-det
+# error at most this multiple of the plain version's (plus FWD_TOL). Above
+# the bound either may break down where the other does not.
+GAUSSIAN_SHAPE = (6, 1000, 6)
+GAUSSIAN_ERR_RATIO = 10
 # fp32 kernels against fp32 torch ops that sum in another order: error over
 # the reference's largest magnitude (at least 1).
 FWD_TOL = 1e-4
@@ -181,6 +224,27 @@ MNIST_DEFAULT_ARGV = [
     "--config", "likelihood_warmup_end=4", "--config", "max_epochs=7", "--config", "seed=0",
 ]
 MNIST_TEST_SAMPLES = 50_000
+# The README's quick start (sphere: D=3, d=2, the affine prior, batch 1000,
+# validation by -elbo every epoch, a test every 50), every published default
+# but the depth: 60 epochs (published 1000), so 600 steps and tests after
+# epochs 1 and 51. No run dir: the card has no matplotlib for its figures.
+SPHERE_EPOCHS = 60
+SPHERE_ARGV = [
+    "--model", "non-square", "--dataset", "sphere", "--nosave",
+    "--config", f"max_epochs={SPHERE_EPOCHS}", "--config", "seed=0",
+]
+# The CMF-vs-RNF battery's hemisphere protocol (analysis/ab_battery.py: lr
+# 0.001, d=6 in D=6), 30 epochs an arm; the arm sets g_ij_loss.
+HEMISPHERE_ARGV = [
+    "--model", "non-square", "--dataset", "hemisphere-2-6", "--nosave",
+    "--config", "lr=0.001", "--config", "latent_dimension=6", "--config", "max_epochs=30",
+    "--config", "seed=0",
+]
+# The canonical-metric summary on the card against the CPU, same weights and
+# 256 test points: a vmap of six JVPs through five couplings, then 6x6 Grams
+# and cosines in fp32, each side summing in its own order.
+METRIC_TOL = 1e-4
+METRIC_POINTS = 256
 # InceptionV3 on the card against the golden features (tests/test_eval.py's
 # tolerance) and against the same network on the CPU: 94 fp32 conv layers,
 # each side summing in its own order.
@@ -441,9 +505,43 @@ def phase_kernels():
     # Times at the main-path shape. J (1.4 MB) stays in the 50 MB L2 between
     # calls, as it does in a training step right after the decode.
     j = cols(*MAIN_SHAPE)
-    g_k, ld_k, l_k = gl.gram_logdet_fwd_cuda(j)
+    _, _, l_k = gl.gram_logdet_fwd_cuda(j)
     gbar = torch.randn((b, d, d), device=dev, generator=gen)
     ldbar = torch.randn((b,), device=dev, generator=gen)
+    kernels = []
+    for name, times in gram_logdet_times(j, l_k, gbar, ldbar, "kernels").items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": "cmf_tpu_torch/csrc/gram_logdet.cu",
+            "replaces": GRAM_REPLACES[name], "launches": None, "_launches_key": GRAM_LAUNCHES_KEY[name],
+            "max_abs_err": results[MAIN_SHAPE][0 if name.endswith("fwd") else 1], **times,
+        })
+
+    # A quarter of the batch: one warp an element leaves the card's 528
+    # schedulers under-filled either way, so a warp's latency sets the time.
+    b4 = b // 4
+    j4, l4, g4, ld4 = j[:, :b4].contiguous(), l_k[:b4].contiguous(), gbar[:b4].contiguous(), ldbar[:b4]
+    for name, fn in (("gram_logdet_fwd", lambda: gl.gram_logdet_fwd_cuda(j4)),
+                     ("gram_logdet_bwd", lambda: gl.gram_logdet_bwd_cuda(j4, l4, g4, ld4))):
+        dev4 = profiled_device_ms(fn, f"{name}_kernel")
+        dev4_txt = "not measured" if dev4 is None else f"{dev4:.6f} ms"
+        print(f"[kernels] {name} at d,B,D={(d, b4, big_d)}: kernel device time {dev4_txt}")
+    return kernels
+
+
+GRAM_REPLACES = {"gram_logdet_fwd": "cmf_tpu/ops/pallas/gram_logdet.py:75",
+                 "gram_logdet_bwd": "cmf_tpu/ops/pallas/gram_logdet.py:109"}
+GRAM_LAUNCHES_KEY = {"gram_logdet_fwd": "GRAM_FWD", "gram_logdet_bwd": "GRAM_BWD"}
+
+
+def gram_logdet_times(j, l_k, gbar, ldbar, tag):
+    """Both Gram/log-det kernels at J's shape (d, B, D): ms per call back to
+    back (CUDA events), the kernel's device time (profiler), the plain
+    version's and the library yardstick's ms (``bmm`` + ``cholesky_ex``;
+    ``cholesky_inverse`` + ``bmm``), and the bound. {name: numbers}."""
+    import torch
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    d, b, big_d = j.shape
 
     def fwd_library():
         g = torch.bmm(j.permute(1, 0, 2), j.permute(1, 2, 0))
@@ -463,13 +561,12 @@ def phase_kernels():
     fwd_flops = b * (d * (d + 1) * big_d + d ** 3 / 3 + 2 * d)
     bwd_bytes = f32 * (2 * d * b * big_d + 2 * b * d * d + b)
     bwd_flops = b * (2 * d ** 3 / 3 + 2 * d * d * big_d + 3 * d * d)
-    kernels = []
-    for name, kern, plain, lib, n_bytes, n_flops, replaces, launches_key in (
+    out = {}
+    for name, kern, plain, lib, n_bytes, n_flops in (
         ("gram_logdet_fwd", lambda: gl.gram_logdet_fwd_cuda(j), lambda: gl.gram_logdet_plain(j),
-         fwd_library, fwd_bytes, fwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:75", "GRAM_FWD"),
+         fwd_library, fwd_bytes, fwd_flops),
         ("gram_logdet_bwd", lambda: gl.gram_logdet_bwd_cuda(j, l_k, gbar, ldbar),
-         lambda: gl.gram_logdet_bwd_plain(j, l_k, gbar, ldbar),
-         bwd_library, bwd_bytes, bwd_flops, "cmf_tpu/ops/pallas/gram_logdet.py:109", "GRAM_BWD"),
+         lambda: gl.gram_logdet_bwd_plain(j, l_k, gbar, ldbar), bwd_library, bwd_bytes, bwd_flops),
     ):
         ms = cuda_ms(kern)
         device_ms = profiled_device_ms(kern, f"{name}_kernel")
@@ -477,27 +574,108 @@ def phase_kernels():
         library_ms = cuda_ms(lib, iters=50, warmup=3)
         b_ms, b_by = bound_ms(n_bytes, n_flops)
         dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
-        print(f"[kernels] {name}: {ms:.6f} ms per call back to back, kernel device time {dev_txt}, "
-              f"plain {plain_ms:.6f} ms, library {library_ms:.6f} ms, bound {b_ms:.6f} ms "
-              f"({b_by}: {n_bytes} B, {n_flops:.4g} FLOP)")
-        kernels.append({
-            "name": name, "route": "cuda", "source": "cmf_tpu_torch/csrc/gram_logdet.cu",
-            "replaces": replaces, "launches": None, "_launches_key": launches_key,
-            "max_abs_err": results[MAIN_SHAPE][0 if name.endswith("fwd") else 1],
-            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-        })
+        print(f"[{tag}] {name} at d,B,D={(d, b, big_d)}: {ms:.6f} ms per call back to back, kernel "
+              f"device time {dev_txt}, plain {plain_ms:.6f} ms, library {library_ms:.6f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by}: {n_bytes} B, {n_flops:.4g} FLOP)")
+        out[name] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms}
+    return out
 
-    # A quarter of the batch: one warp an element leaves the card's 528
-    # schedulers under-filled either way, so a warp's latency sets the time.
-    b4 = b // 4
-    j4, l4, g4, ld4 = j[:, :b4].contiguous(), l_k[:b4].contiguous(), gbar[:b4].contiguous(), ldbar[:b4]
-    for name, fn in (("gram_logdet_fwd", lambda: gl.gram_logdet_fwd_cuda(j4)),
-                     ("gram_logdet_bwd", lambda: gl.gram_logdet_bwd_cuda(j4, l4, g4, ld4))):
-        dev4 = profiled_device_ms(fn, f"{name}_kernel")
-        dev4_txt = "not measured" if dev4 is None else f"{dev4:.6f} ms"
-        print(f"[kernels] {name} at d,B,D={(d, b4, big_d)}: kernel device time {dev4_txt}")
-    return kernels
+
+def conditioned_cols(d, b, big_d, gen):
+    """(d, B, D) Jacobian columns with singular values in [0.5, 2] (so G's
+    condition number is at most 16), each element's from its own random
+    orthonormal bases. At d = D a Gaussian J's Gram reaches condition
+    numbers near 1e8, where neither fp32 version is accurate and a pivot can
+    round below zero: ``gaussian_vs_fp64`` holds both versions against fp64
+    there."""
+    import torch
+
+    dev = gen.device
+    q, _ = torch.linalg.qr(torch.randn((b, big_d, d), device=dev, generator=gen))
+    r, _ = torch.linalg.qr(torch.randn((b, d, d), device=dev, generator=gen))
+    s = 0.5 + 1.5 * torch.rand((b, 1, d), device=dev, generator=gen)
+    return ((q * s) @ r).permute(2, 0, 1).contiguous()
+
+
+def phase_kernels_small():
+    """Both Gram/log-det kernels against their plain versions at the 2-D
+    zoo's shapes: d = 1, 2, 6 and D = 2, 3, 6, B up to the test split's 5000
+    and a tail warp; the forward's outputs, autograd through each with a
+    loss on the Gram (a non-zero Ḡ), and the backward kernel alone with a
+    random Ḡ, with ḡ_ld random and with ḡ_ld = 0."""
+    import torch
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for shape in SMALL_SHAPES:
+        d, b, big_d = shape
+        j = conditioned_cols(d, b, big_d, gen)
+        g_k, ld_k, l_k = gl.gram_logdet_fwd_cuda(j)
+        g_p, ld_p, l_p = gl.gram_logdet_plain(j)
+        fwd = max(rel_err(g_k, g_p), rel_err(l_k, l_p), rel_err(ld_k, ld_p))
+        w_ld = torch.randn((b,), device=dev, generator=gen)
+        off = 1.0 - torch.eye(d, device=dev)
+        grads = []
+        for fn in (gl.fused_gram_logdet, lambda jj: gl.gram_logdet_plain(jj)[:2]):
+            jj = j.clone().requires_grad_(True)
+            g, ld = fn(jj)
+            ((ld * w_ld).sum() + 0.3 * (g * off).abs().sum() + 0.2 * torch.diagonal(g, dim1=-2, dim2=-1).abs().sum()).backward()
+            grads.append(jj.grad)
+        autograd = rel_err(*grads)
+        gbar = torch.randn((b, d, d), device=dev, generator=gen)
+        ldbar = torch.randn((b,), device=dev, generator=gen)
+        direct = rel_err(gl.gram_logdet_bwd_cuda(j, l_k, gbar, ldbar), gl.gram_logdet_bwd_plain(j, l_p, gbar, ldbar))
+        zero = torch.zeros_like(ldbar)
+        gbar_only = rel_err(gl.gram_logdet_bwd_cuda(j, l_k, gbar, zero), gl.gram_logdet_bwd_plain(j, l_p, gbar, zero))
+        torch.cuda.synchronize()
+        print(f"[kernels-small] d,B,D={shape}: fwd max rel err {fwd:.3e} (tol {FWD_TOL:g}); autograd "
+              f"with a loss on G {autograd:.3e}; bwd kernel with random Ḡ and ḡ_ld {direct:.3e}, with "
+              f"ḡ_ld = 0 {gbar_only:.3e} (tol {BWD_TOL:g})")
+        assert fwd <= FWD_TOL, f"forward kernel disagrees with its plain version at {shape}"
+        assert max(autograd, direct, gbar_only) <= BWD_TOL, f"backward kernel disagrees at {shape}"
+        if shape in SMALL_TIMED:
+            gram_logdet_times(j, l_k, gbar, ldbar, "kernels-small")
+    gaussian_vs_fp64(gen)
+
+
+def gaussian_vs_fp64(gen):
+    """The forward kernel and its plain version on Gaussian columns at
+    GAUSSIAN_SHAPE against the Gram and log-det in fp64 on the card."""
+    import torch
+    from cmf_tpu_torch.ops import gram_from_columns
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    j = torch.randn(GAUSSIAN_SHAPE, device=gen.device, generator=gen)
+    g64 = gram_from_columns(j.double())
+    l64, info = torch.linalg.cholesky_ex(g64)
+    ld64 = 2.0 * torch.log(torch.diagonal(l64, dim1=-2, dim2=-1)).sum(-1)
+    cond = torch.linalg.cond(g64)
+    worst = int(cond.argmax())
+    readings = {}
+    for name, (g, ld, _) in (("kernel", gl.gram_logdet_fwd_cuda(j)), ("plain", gl.gram_logdet_plain(j))):
+        finite = torch.isfinite(ld)
+        err = (ld.double() - ld64).abs().where(finite, torch.zeros_like(ld64))
+        readings[name] = (finite, float(err.max()), int(err.argmax()), rel_err(g, g64))
+    print(f"[kernels-small] Gaussian J at d,B,D={GAUSSIAN_SHAPE}: fp64 Cholesky failures {int((info > 0).sum())}; "
+          f"cond(G) median {float(cond.median()):.3e}, max {float(cond[worst]):.3e} (element {worst}), "
+          f"{int((cond > 1e6).sum())} elements above 1e6, {int((cond > 1e7).sum())} above 1e7")
+    for name, (finite, err, at, gram_err) in readings.items():
+        print(f"[kernels-small]   {name}: Gram vs fp64 max rel err {gram_err:.3e}; non-finite log-dets "
+              f"{int((~finite).sum())} at {(~finite).nonzero().flatten().tolist()}; max |log-det - fp64| "
+              f"over finite elements {err:.3e} at element {at} (cond {float(cond[at]):.3e})")
+    (fin_k, err_k, _, gram_k), (fin_p, err_p, _, gram_p) = readings["kernel"], readings["plain"]
+    safe = cond <= 1.0 / (20 * GAUSSIAN_SHAPE[0] ** 1.5 * torch.finfo(torch.float32).eps)
+    differ = (fin_k != fin_p).nonzero().flatten().tolist()
+    print(f"[kernels-small]   {int(safe.sum())} elements under the breakdown-free bound "
+          f"{1.0 / (20 * GAUSSIAN_SHAPE[0] ** 1.5 * torch.finfo(torch.float32).eps):.3e}; finite in one "
+          f"version only: {[(i, 'kernel' if bool(fin_k[i]) else 'plain', f'{float(cond[i]):.3e}') for i in differ]}")
+    assert int((info > 0).sum()) == 0, "the fp64 reference Cholesky failed"
+    assert max(gram_k, gram_p) <= FWD_TOL, "a Gram disagrees with fp64"
+    assert bool((fin_k & fin_p)[safe].all()), "a log-det is non-finite where fp32 Cholesky cannot break down"
+    assert err_k <= GAUSSIAN_ERR_RATIO * err_p + FWD_TOL, \
+        "the kernel's log-det is further from fp64 than the plain version's allows"
 
 
 def step_time(step, x, flags, n_steps, tag, route=""):
@@ -531,8 +709,35 @@ def host_ms(fn, n):
     return (time.perf_counter() - t0) / n * 1e3
 
 
+def device_union_and_span(prof):
+    """The union of a trace's device intervals (kernels, copies, fills) and
+    their span (first start to last end), in µs; (0, 0) for none."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    intervals = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        for e in events
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+    )
+    if not intervals:
+        return 0.0, 0.0
+    union, (cur_start, cur_end) = 0.0, intervals[0]
+    for start, end in intervals[1:]:
+        if start > cur_end:
+            union += cur_end - cur_start
+            cur_start = start
+        cur_end = max(cur_end, end)
+    union += cur_end - cur_start
+    return union, max(end for _, end in intervals) - intervals[0][0]
+
+
 def profile_steps(step, x, flags, n_steps, tag, route="", unit="step"):
-    """Where a step's (a ``unit``'s) device time goes, under torch.profiler."""
+    """Where a step's (a ``unit``'s) device time goes, under torch.profiler,
+    and the device's idle share from the same trace: one less the union of
+    the device intervals over their span."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -558,11 +763,13 @@ def profile_steps(step, x, flags, n_steps, tag, route="", unit="step"):
     )
     busy = sum(r[0] for r in rows)
     ops = sum(r[2] for r in rows) // n_steps
-    if busy:
+    union, span = device_union_and_span(prof)
+    if busy and span:
         units = unit + ("es" if unit.endswith("s") else "s")
-        print(f"[{tag}] {route}profile of {n_steps} {units}: {ops} device "
-              f"ops/{unit}, busy {busy / n_steps / 1e3:.4f} ms/{unit} of {wall_us / n_steps / 1e3:.4f} "
-              f"ms/{unit} wall (idle share {1 - busy / wall_us:.3f})")
+        print(f"[{tag}] {route}profile of {n_steps} {units}: {ops} device ops/{unit}, busy "
+              f"{busy / n_steps / 1e3:.4f} ms/{unit} summed, {union / n_steps / 1e3:.4f} ms/{unit} as the "
+              f"union of the device intervals over their span of {span / n_steps / 1e3:.4f} ms/{unit} "
+              f"(idle share {1 - union / span:.4f}; wall {wall_us / n_steps / 1e3:.4f} ms/{unit})")
         for dt, key, count in rows[:12]:
             print(f"[{tag}]   {dt / n_steps / 1e3:9.4f} ms/{unit}  x{count // n_steps:<4d} {key[:90]}")
     else:
@@ -675,26 +882,26 @@ def max_rel_diff(got, ref):
     return worst
 
 
-def fresh_trainer():
-    """A miniboone trainer at full width with the smoke's weights (seed 0),
-    before any step."""
+def fresh_setup(argv):
+    """The CLI's setup for ``argv`` (the smoke's weights, seed 0), before any
+    step."""
     from cmf_tpu_torch.main import main as cli_main
 
-    (setup,) = cli_main(TRAIN_ARGV + ["--config", "max_epochs=0"])
-    return setup["trainer"]
+    (setup,) = cli_main(argv + ["--config", "max_epochs=0"])
+    return setup
 
 
-def phase_captured(step_ms):
+def captured_vs_eager(argv, tag):
+    """A fresh trainer's captured steps against another's eager steps of the
+    same step function, from the same weights, on the train loader's first
+    epoch of batches. Returns (captured, eager, flags, batches)."""
     import torch
-    from cmf_tpu_torch.densities import nonsquare
-    from cmf_tpu_torch.ops import cholesky_logdet, gram_from_columns, jittered_cholesky
 
-    captured, eager = fresh_trainer(), fresh_trainer()
+    captured, eager = fresh_setup(argv)["trainer"], fresh_setup(argv)["trainer"]
     flags = captured.objective.for_epoch(1)
     batches = list(captured.train_loader)
     n = len(batches)
 
-    # Captured against eager: the same step function, weights and batches.
     # The likelihood weight changes every step, as in the warmup: a graph
     # must read it as an input.
     step_flags = [{**flags, "likelihood_wt": 0.5 + 0.05 * i} for i in range(n)]
@@ -704,12 +911,24 @@ def phase_captured(step_ms):
     loss_rel = float(((out_c - out_e).abs() / out_e.abs()).max())
     state_rel = max_rel_diff(state_c, state_e)
     exact = all(torch.equal(a, b) for a, b in zip(state_c, state_e))
-    print(f"[captured] {n} captured vs {n} eager steps from the same weights, likelihood weight 0.5 to "
+    print(f"[{tag}] {n} captured vs {n} eager steps from the same weights, likelihood weight 0.5 to "
           f"{step_flags[-1]['likelihood_wt']:g}: max rel diff of the losses "
           f"and grad norms {loss_rel:.3e}, of {len(state_c)} parameter and Adam state tensors "
           f"{state_rel:.3e} (tol {CAPTURED_TOL:g}); bit-equal {exact}; "
           f"{len(captured_steps(captured))} graph(s) captured")
-    assert loss_rel <= CAPTURED_TOL and state_rel <= CAPTURED_TOL, "captured steps drift from eager steps"
+    assert captured.captured and len(captured_steps(captured)) == 1, f"{tag}: the steps ran no graph"
+    assert loss_rel <= CAPTURED_TOL and state_rel <= CAPTURED_TOL, f"{tag}: captured steps drift from eager steps"
+    return captured, eager, flags, batches
+
+
+def phase_captured(step_ms):
+    import torch
+    from cmf_tpu_torch.densities import nonsquare
+    from cmf_tpu_torch.ops import cholesky_logdet, gram_from_columns, jittered_cholesky
+
+    # Captured against eager: the same step function, weights and batches.
+    captured, eager, flags, batches = captured_vs_eager(TRAIN_ARGV, "captured")
+    n = len(batches)
 
     # No host read in the eager exact step.
     x = batches[0]
@@ -972,6 +1191,107 @@ def phase_default(smi):
     finally:
         _restore_streams(streams)
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_default_sphere(smi):
+    """The README's first command under ``--nosave``: sphere with every
+    published default, cut to 60 epochs."""
+    import torch
+    from cmf_tpu_torch.densities import nonsquare
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    # The main path: the counts are read right after it.
+    with _Recorded() as rec:
+        gl.reset_launch_counts()
+        nonsquare.reset_logdet_fallbacks()
+        t0 = time.perf_counter()
+        (setup,) = cli_main(SPHERE_ARGV)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        fwd, bwd = gl.launch_counts()
+    trainer = setup["trainer"]
+    history = trainer.history
+    valid, test = rec.steps("valid/loss"), rec.steps("test/loss")
+    graphs = captured_steps(trainer)
+    evals = len(valid) * len(trainer.valid_loader) + len(test) * len(trainer.test_loader)
+    train_s = trainer.timings["train"][1]
+    print(f"[default-sphere] {trainer.epoch} epochs, {len(history)} steps; {len(graphs)} graph(s) captured; "
+          f"Gram/log-det launches (fwd, bwd) {fwd}, {bwd} ({evals} evaluation batches); log-det "
+          f"fallbacks {nonsquare.logdet_fallbacks()}; losses {history[0][1]:.6g} -> {history[-1][1]:.6g}; "
+          f"valid/loss (-elbo) at {len(valid)} epochs, {valid[min(valid)]:.6g} -> {valid[max(valid)]:.6g}; "
+          f"test/loss at epochs {sorted(test)}: {', '.join(f'{v:.6g}' for _, v in sorted(test.items()))}")
+    assert all(math.isfinite(h[1]) for h in history), "non-finite loss in the sphere run"
+    assert sorted(valid) == list(range(1, trainer.epoch + 1)) and trainer.epoch == SPHERE_EPOCHS
+    assert sorted(test) == [1, 51], "test/loss not written at epochs 1 and 51"
+    assert all(math.isfinite(v) for v in list(valid.values()) + list(test.values())), "non-finite elbo"
+    assert trainer.captured and len(graphs) == 1, "the sphere run did not train through one graph"
+    assert bwd == len(history) and fwd == len(history) + evals, \
+        "Gram/log-det launches != training steps (bwd) + evaluation batches (fwd)"
+    print(f"[default-sphere] {smi}: the run took {seconds:.4f} s; training epochs {train_s:.4f} s, so "
+          f"{1 - train_s / seconds:.4f} of the run's wall time outside training steps (host clock)")
+
+    flags = trainer.objective.for_epoch(trainer.epoch)
+    x = next(iter(trainer.train_loader))
+    step_time(trainer.step, x, flags, 20, "default-sphere", "captured: ")
+    step_ms = cuda_ms(lambda: trainer.step(x, flags), iters=50, warmup=3)
+    print(f"[default-sphere] captured: {step_ms:.4f} ms per step back to back (CUDA events)")
+    profile_steps(trainer.step, x, flags, 20, "default-sphere", "captured: ")
+    step_time(trainer.eager_step, x, flags, 10, "default-sphere", "eager: ")
+    card_vs_cpu(setup, x, flags, "default-sphere", STEP_LOSS_TOL, STEP_GRAD_TOL)
+    captured_vs_eager(SPHERE_ARGV, "default-sphere")
+
+
+def phase_cmf_battery(smi):
+    """The CMF-vs-RNF battery's hemisphere arms under ``--nosave``, 30
+    epochs each; their canonical-metric summaries on the card against the
+    CPU; then one captured miniboone step with the off-diagonal metric term
+    against the CPU."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.viz.metric_analysis import canonical_metric_summary, macs
+
+    for arm, g_ij in (("cmf", True), ("rnf", False)):
+        argv = HEMISPHERE_ARGV + ["--config", f"g_ij_loss={g_ij}"]
+        with _Recorded() as rec:
+            t0 = time.perf_counter()
+            (setup,) = cli_main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        trainer, density = setup["trainer"], setup["density"]
+        history = trainer.history
+        valid = rec.steps("valid/loss")
+        print(f"[cmf-battery] {arm} (g_ij_loss={g_ij}): {trainer.epoch} epochs, {len(history)} steps in "
+              f"{seconds:.4f} s ({smi}); {len(captured_steps(trainer))} graph(s); losses {history[0][1]:.6g} "
+              f"-> {history[-1][1]:.6g}; valid/loss {valid[min(valid)]:.6g} -> {valid[max(valid)]:.6g}")
+        assert all(math.isfinite(h[1]) for h in history), f"{arm}: non-finite loss"
+        assert trainer.captured and len(captured_steps(trainer)) == 1, f"{arm}: no graph"
+        assert all(math.isfinite(v) for v in valid.values()), f"{arm}: non-finite valid/loss"
+
+        x = next(iter(trainer.test_loader))[:METRIC_POINTS]
+        cpu = get_density(setup["schema"], x_shape=tuple(x.shape[1:]), device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in density.state_dict().items()})
+        got, ref = canonical_metric_summary(density, x), canonical_metric_summary(cpu, x.cpu())
+        got["macs_of_latents"] = macs(density, density.extract_latent(x))[0]
+        ref["macs_of_latents"] = macs(cpu, cpu.extract_latent(x.cpu()))[0]
+        errs = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in ref}
+        print(f"[cmf-battery] {arm}: MACS {got['macs']:.6g} (CPU {ref['macs']:.6g}); summary on the card "
+              f"{got}; max rel err vs the CPU {max(errs.values()):.3e} (tol {METRIC_TOL:g})")
+        assert all(e <= METRIC_TOL for e in errs.values()), f"{arm}: the metric summary disagrees with the CPU"
+        if g_ij:
+            flags = trainer.objective.for_epoch(trainer.epoch)
+            card_vs_cpu(setup, next(iter(trainer.train_loader)), flags, "cmf-battery", STEP_LOSS_TOL,
+                        STEP_GRAD_TOL)
+            captured_vs_eager(argv, "cmf-battery")
+    # The README's second command: miniboone with the off-diagonal term.
+    argv = TRAIN_ARGV + ["--config", "g_ij_loss=True"]
+    setup = fresh_setup(argv)
+    trainer = setup["trainer"]
+    flags = trainer.objective.for_epoch(1)
+    assert flags["add_offdiagonal_metric_reg"], "g_ij_loss=True did not turn on the off-diagonal term"
+    card_vs_cpu(setup, next(iter(trainer.train_loader)), flags, "cmf-battery", STEP_LOSS_TOL, STEP_GRAD_TOL)
+    captured_vs_eager(argv, "cmf-battery")
 
 
 def capture(fn):
@@ -1359,10 +1679,13 @@ def main():
     name, smi = phase_device()
     phase_build()
     kernels = phase_kernels() + [phase_coupler_kernel()]
+    phase_kernels_small()
     counts, step_ms = phase_train()
     phase_captured(step_ms)
     phase_warmup()
     phase_default(smi)
+    phase_default_sphere(smi)
+    phase_cmf_battery(smi)
     setup = phase_train_mnist()
     phase_sample(setup)
     phase_inception(smi)

@@ -1,3 +1,4 @@
+from .affine import AffineBijection
 from .base import Bijection
 from .coupling import (
     AlternatingChannelwiseCouplingBijection,
@@ -13,6 +14,7 @@ from .reshaping import (
 )
 
 __all__ = [
+    "AffineBijection",
     "Bijection",
     "AlternatingChannelwiseCouplingBijection",
     "Checkerboard2dCouplingBijection",

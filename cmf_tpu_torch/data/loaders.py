@@ -11,6 +11,7 @@ import torch
 
 from .image import DATASET_SHAPES as IMAGE_SHAPES, get_image_datasets
 from .tabular import DATASET_SHAPES as TABULAR_SHAPES, get_tabular_datasets
+from .two_d import _GENERATORS as _TWO_D_GENERATORS, get_2d_datasets
 
 
 class ArrayLoader:
@@ -58,9 +59,12 @@ class ArrayLoader:
 
 
 def get_loaders(dataset, config, device, seed=0, synthetic=None, data_root=None):
-    """name → (train_loader, valid_loader, test_loader): tabular and image
-    datasets; images are cast from uint8 to float32 (loaders.py:142-148)."""
-    if dataset in TABULAR_SHAPES:
+    """name → (train_loader, valid_loader, test_loader) (loaders.py:132-167):
+    the 2-D zoo, tabular and image datasets; images are cast from uint8 to
+    float32."""
+    if dataset in _TWO_D_GENERATORS:
+        train_x, valid_x, test_x = get_2d_datasets(dataset, seed=seed)
+    elif dataset in TABULAR_SHAPES:
         train_x, valid_x, test_x = get_tabular_datasets(
             dataset, data_root=data_root, synthetic=synthetic, seed=seed
         )
@@ -70,7 +74,7 @@ def get_loaders(dataset, config, device, seed=0, synthetic=None, data_root=None)
         )
         train_x, valid_x, test_x = (a.astype(np.float32) for a in (train_x, valid_x, test_x))
     else:
-        raise NotImplementedError(f"dataset `{dataset}' waits for a later slice of the port")
+        raise AssertionError(f"Unknown dataset `{dataset}'")
     # Optional split truncation (loaders.py:152-159): caps every split so
     # short runs control steps-per-epoch explicitly.
     max_size = config.get("max_dataset_size")

@@ -15,6 +15,9 @@ same keys as the JAX package's ``{"params", "state"}`` trees, so
   fused coupler-stack kernel (``nets/core.py``). ``_sample`` /
   ``_fixed_sample`` are the same functions in whatever mode the caller is
   in: under ``torch.no_grad()`` they take the conv modules instead.
+* ``extract_latent(x, earliest=False) -> latent`` — the encoder's latent of
+  ``x``: in a non-square chain the d coordinates the tail keeps, or with
+  ``earliest`` the base density's input below the latent prior.
 * ``ood(x) -> {"likelihood", "reconstruction-error"}`` — each example's
   likelihood term and reconstruction error (exact log-det), the OOD
   battery's features; through the chain to the non-square head.
@@ -52,6 +55,9 @@ class Density(nn.Module):
 
     def decode(self, u):
         raise NotImplementedError(f"{type(self).__name__} is not part of a non-square chain")
+
+    def extract_latent(self, x, earliest=False):
+        raise NotImplementedError(f"{type(self).__name__} has no latent")
 
     def ood(self, x):
         raise NotImplementedError(f"{type(self).__name__} has no OOD features")

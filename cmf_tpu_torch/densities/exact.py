@@ -30,6 +30,10 @@ class BijectionDensity(Density):
     def decode(self, u):
         return self.bijection.inverse_point(self.prior.decode(u))
 
+    def extract_latent(self, x, earliest=False):
+        z, _ = self.bijection(x)
+        return self.prior.extract_latent(z, earliest=earliest)
+
     def ood(self, x):
         z, _ = self.bijection(x)
         return self.prior.ood(z)

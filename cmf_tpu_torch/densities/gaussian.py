@@ -49,3 +49,6 @@ class DiagonalGaussianDensity(Density):
 
     def _fixed_sample(self, noise=None):
         return noise if noise is not None else self.fixed_samples
+
+    def extract_latent(self, x, earliest=False):
+        return x

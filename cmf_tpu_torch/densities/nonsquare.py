@@ -199,6 +199,25 @@ class NonSquareHeadDensity(Density):
         (nonsquare.py:411-413)."""
         return self.elbo(x, train=False, ood=True)
 
+    def extract_latent(self, x, earliest=False):
+        """The d coordinates the tail keeps (nonsquare.py:403-409); with
+        ``earliest``, the latent prior's own latent."""
+        if earliest:
+            return self.prior.extract_latent(x, earliest=True)
+        return self.prior.elbo(x)["low_dim_x"]
+
+    def pullback_log_jac_jac_transpose(self, x):
+        """log(J_enc J_encᵀ) of a 1-D latent, the pullback density
+        correction of the 2-D visualisers (nonsquare.py:415-432): the
+        encoder's gradient at each example by ``torch.func.grad`` under
+        ``torch.func.vmap``."""
+
+        def encode(xi):
+            return self.prior.elbo(xi[None])["low_dim_x"][0, 0]
+
+        jac = torch.func.vmap(torch.func.grad(encode))(x).reshape(x.shape[0], -1)
+        return torch.log((jac * jac).sum(dim=1))
+
     def _dense_decode_program(self):
         """The dense decode program of a flat chain, or None (cached)."""
         if not self._program_checked:
@@ -331,3 +350,10 @@ class NonSquareTailDensity(Density):
 
     def _fixed_sample(self, noise=None):
         return self.decode(self.prior._fixed_sample(noise))
+
+    def extract_latent(self, x, earliest=False):
+        """The projection to the d kept coordinates, then the latent prior's
+        latent (nonsquare.py:526-535)."""
+        flat = x.reshape(x.shape[0], -1)
+        low_dim = flat[:, self.permutation][:, : self.latent_dimension]
+        return self.prior.extract_latent(low_dim, earliest=earliest)

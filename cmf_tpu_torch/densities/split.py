@@ -33,6 +33,10 @@ class SplitDensity(Density):
                 info[k] = info1[k]
         return info
 
+    def extract_latent(self, x, earliest=False):
+        x1, _ = torch.chunk(x, 2, dim=self.axis)
+        return self.density_1.extract_latent(x1, earliest=earliest)
+
     def pad_inputs(self, x1):
         return torch.cat([x1, torch.zeros_like(x1)], dim=self.axis)
 

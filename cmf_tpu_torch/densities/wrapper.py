@@ -32,6 +32,9 @@ class DequantizationDensity(Density):
     def decode(self, u):
         return self.density.decode(u)
 
+    def extract_latent(self, x, earliest=False):
+        return self.density.extract_latent(x, earliest=earliest)
+
     def ood(self, x):
         """No noise: the JAX package's wrapper passes ``ood`` straight on."""
         return self.density.ood(x)

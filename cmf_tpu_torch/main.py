@@ -1,12 +1,13 @@
 """CLI for the port: ``python -m cmf_tpu_torch --model non-square --dataset
-{miniboone,mnist} --synthetic-data --config key=value ... [--device cpu]``,
+{sphere,hemisphere-2-6,miniboone,mnist,...} --config key=value ... [--device cpu]``,
 then ``--resume <run dir>`` to train on, ``--test --resume <run dir>``, or
 ``--test-ood --resume <run dir>`` (the OOD battery of an image run).
 
 The flags and the ``--config key=value`` mini-language are those of the JAX
 package's ``main.py`` (values typed by ``ast.literal_eval``), for the subset
 the port carries so far: training, resuming, the test pass and the OOD
-battery. ``--resume``
+battery, and ``--print-config``, ``--print-schema`` and
+``--print-num-params``. ``--resume``
 reads the run's ``config.json`` and ignores the other settings. Without
 ``--device cpu`` it runs on the card, and raises where there is none.
 """
@@ -48,6 +49,7 @@ def build_parser():
     parser.add_argument("--rundir-tail", default="", help="Suffix for the run directory name.")
     parser.add_argument("--print-config", action="store_true")
     parser.add_argument("--print-schema", action="store_true")
+    parser.add_argument("--print-num-params", action="store_true")
     parser.add_argument("--test", action="store_true", help="Test model and exit instead of training.")
     parser.add_argument("--overwrite-metrics", action="store_true")
     parser.add_argument("--test-fid", action="store_true", help="Use test dataset for FID.")
@@ -98,6 +100,12 @@ def main(argv=None):
         pprint.PrettyPrinter(indent=4).pprint(config)
         should_train = False
     grid = expand_grid(config)
+    if args.print_num_params:
+        from .training import print_num_params
+
+        for c in grid:
+            print_num_params({**c, "seed": c.get("seed", 0)}, device=args.device)
+        should_train = False
     if args.print_schema:
         for c in grid:
             print(json.dumps(get_schema(c), indent=4))

@@ -3,7 +3,7 @@
 multiscale image non-square schemas use).
 
 Covered: ``dequantization``, ``split``, ``non-square-head`` (exact and
-Hutchinson + CG log-det), ``non-square-base``, ``flatten``, ``flip``,
+Hutchinson + CG log-det), ``non-square-base``, ``affine``, ``flatten``, ``flip``,
 ``rand-channel-perm``, ``squeeze``, ``logit``, ``scalar-mult``,
 ``scalar-add``, ``acl`` with alternating-channel, checkerboard and
 split-channel masks, MLP and batchnorm-free ResNet couplers, and the
@@ -18,6 +18,7 @@ parity with the JAX package goes through ``interop.variables_from_jax``.
 import numpy as np
 
 from ..bijections import (
+    AffineBijection,
     AlternatingChannelwiseCouplingBijection,
     Checkerboard2dCouplingBijection,
     FlipBijection,
@@ -126,6 +127,8 @@ def get_bijection(layer_config, x_shape, generator):
         return ScalarMultiplicationBijection(x_shape=x_shape, value=layer_config["value"])
     if ty == "scalar-add":
         return ScalarAdditionBijection(x_shape=x_shape, value=layer_config["value"])
+    if ty == "affine":
+        return AffineBijection(x_shape=x_shape, per_channel=layer_config["per_channel"])
     if ty == "acl":
         return get_acl_bijection(layer_config, x_shape, generator)
     raise _later(f"layer type `{ty}'")

@@ -5,6 +5,7 @@ from .experiment import (
     make_optimizer,
     num_params,
     ood_classification,
+    print_num_params,
     setup_experiment,
     test_and_visualize,
     train,
@@ -20,6 +21,7 @@ __all__ = [
     "make_optimizer",
     "num_params",
     "ood_classification",
+    "print_num_params",
     "setup_experiment",
     "test_and_visualize",
     "train",

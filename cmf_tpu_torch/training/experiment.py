@@ -28,6 +28,7 @@ from ..data.tabular import DATASET_SHAPES as TABULAR_SHAPES
 from ..device import pin_fp32, resolve_device
 from ..eval.fid import get_fid_function
 from ..eval.inception import get_feature_fn
+from ..eval.metrics import metrics
 from ..models import get_density
 from .objectives import get_objective
 from .trainer import Trainer
@@ -74,14 +75,35 @@ def num_params(density):
     return int(sum(p.numel() for p in density.parameters()))
 
 
-def _zero_losses(density, x):
+def _zero_losses(density, x, generator=None):
     """The validation loss of a FID dataset (experiment.py:213-215): zero a
     row, made on the host, so reading it reads nothing from the card."""
     return torch.zeros(x.shape[0])
 
 
-def _zero_test_metrics(density, x):
+def _zero_test_metrics(density, x, generator=None):
     return {"loss": torch.zeros(x.shape[0])}
+
+
+def elbo_loss_fns(config):
+    """The validation and test closures of a non-square run on data that is
+    not a FID dataset (experiment.py:217-231): validation is −elbo of
+    ``metrics`` over ``num_valid_elbo_samples``, the head's defaults kept
+    (the reconstruction term in); the test is −elbo with no reconstruction
+    term, no metric terms and the likelihood at weight 1."""
+    num_valid = config["num_valid_elbo_samples"]
+
+    def valid_loss_fn(density, x, generator=None):
+        return -metrics(density, x, num_valid, generator=generator)["elbo"]
+
+    def test_metrics_fn(density, x, generator=None):
+        info = density.elbo(
+            x, train=False, generator=generator, add_reconstruction=False,
+            add_diagonal_metric_reg=False, add_offdiagonal_metric_reg=False, likelihood_wt=1.0,
+        )
+        return {"loss": -info["elbo"]}
+
+    return valid_loss_fn, test_metrics_fn
 
 
 def _make_writer(config, resume_dir, write_to_disk):
@@ -126,15 +148,16 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     generator = torch.Generator().manual_seed(seed)
     density = get_density(schema, x_shape=train_loader.x_shape, device=device, generator=generator)
     writer = _make_writer(config, resume_dir, write_to_disk)
-    visualizer = viz.get_visualizer(config, writer, x_shape=tuple(train_loader.x_shape))
+    visualizer = viz.get_visualizer(config, writer, train_data=train_loader.x)
 
-    # Loss closures (experiment.py:211-215). Every dataset the port loads is
-    # a FID dataset.
-    assert config["dataset"] in FID_DATASETS
-    valid_loss_fn, test_metrics_fn = _zero_losses, _zero_test_metrics
+    # Loss closures (experiment.py:211-231).
+    if config["dataset"] in FID_DATASETS:
+        valid_loss_fn, test_metrics_fn = _zero_losses, _zero_test_metrics
+    else:
+        valid_loss_fn, test_metrics_fn = elbo_loss_fns(config)
 
     fid_function = None
-    if config.get("use_fid", False):
+    if config["dataset"] in FID_DATASETS and config.get("use_fid", False):
         loader = test_loader if config.get("use_test_fid", False) else train_loader
         feature_fn = None
         if config["dataset"] in IMAGE_SHAPES:
@@ -186,6 +209,17 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     }
 
 
+def print_num_params(config, device=None):
+    """Print the parameter count of ``config``'s model (experiment.py:549-552),
+    built on ``device`` (``None`` for the card, raising without one, or
+    ``"cpu"``)."""
+    device = resolve_device(device)
+    loaders = get_loaders(config["dataset"], config, device, seed=config["seed"],
+                          synthetic=config.get("synthetic_data"), data_root=config.get("data_root"))
+    density = get_density(get_schema(config), x_shape=loaders[0].x_shape, device=device)
+    print(f"Number of parameters: {num_params(density)}")
+
+
 def _write_run_metadata(writer, config, density):
     writer.write_json("config", {k: v for k, v in config.items()})
     writer.write_json("model", {"num_params": num_params(density), "schema": get_schema(config)})
@@ -226,13 +260,16 @@ def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, devi
             return {"results": json.load(f)}
 
     # The JAX package draws into the run dir after a test of data that is
-    # not tabular; a visualiser the port lacks raises here, before any work.
-    visualizer = None
-    if config["dataset"] not in TABULAR_SHAPES:
-        visualizer = viz.get_visualizer(config, DummyWriter(), write_folder=resume_dir)
+    # not tabular; a visualiser the port lacks, or matplotlib missing where
+    # one draws, raises here, before any work.
+    draws = config["dataset"] not in TABULAR_SHAPES
+    if draws:
+        viz.check_visualizer(config, write_folder=resume_dir)
     setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
     results = setup["trainer"].test()
-    if visualizer is not None:
+    if draws:
+        visualizer = viz.get_visualizer(config, DummyWriter(), train_data=setup["train_loader"].x,
+                                        write_folder=resume_dir)
         visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
     with open(metrics_path, "w") as f:
         json.dump(results, f, indent=4)

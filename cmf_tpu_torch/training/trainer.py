@@ -136,16 +136,17 @@ class Trainer:
         max_bad_valid_epochs=0,
         valid_frequency=1,
         epochs_per_test=1,
-        valid_loss_fn=None,    # (density, x) -> (B,) losses
-        test_metrics_fn=None,  # (density, x) -> {name: (B,) values}
+        valid_loss_fn=None,    # (density, x, generator) -> (B,) losses
+        test_metrics_fn=None,  # (density, x, generator) -> {name: (B,) values}
         fid_function=None,     # (density, generator) -> float
         should_checkpoint_latest=True,
         should_checkpoint_best_valid=True,
         only_testing=False,
     ):
         self.density = density
-        # Draws the dequantization noise, the Hutchinson probes and the FID
-        # noise; a generator on the device the density lives on.
+        # Draws the dequantization noise, the Hutchinson probes, the FID
+        # noise and the evaluation closures' elbo samples; a generator on the
+        # device the density lives on.
         self.generator = generator
         self.objective = objective
         self.optimizer = optimizer
@@ -355,7 +356,7 @@ class Trainer:
         sums, counts = {}, {}
         with torch.no_grad():
             for x in loader:
-                for k, v in fn(self.density, x).items():
+                for k, v in fn(self.density, x, self.generator).items():
                     sums[k] = v.sum() if k not in sums else sums[k] + v.sum()
                     counts[k] = counts.get(k, 0) + v.numel()
         if not sums:
@@ -374,7 +375,7 @@ class Trainer:
             valid_loss = self._fid()
         else:
             valid_loss = self._run_eval(
-                lambda d, x: {"loss": self.valid_loss_fn(d, x)}, self.valid_loader
+                lambda d, x, g: {"loss": self.valid_loss_fn(d, x, g)}, self.valid_loader
             )["loss"]
 
         self.writer.write_scalar("valid/loss", valid_loss, global_step=epoch)

@@ -119,7 +119,7 @@ def test_get_loaders_matches_with_dataset_cap():
 
 _UNPORTED = [
     ({"dataset": "mnist", "test_metric": True}, "dataset-mnist-test_metric-True"),
-    ({"dataset": "power"}, "dataset-power"),
+    ({"dataset": "mnist", "test_center": True}, "dataset-mnist-test_center-True"),
     ({"checkpoint_backend": "orbax"}, "checkpoint_backend-orbax"),
     ({"m_flow": True}, "m_flow-True"),
     ({"lr_schedule": "cosine"}, "lr_schedule-cosine"),
@@ -132,9 +132,9 @@ _UNPORTED = [
 @pytest.mark.parametrize("overrides", [o for o, _ in _UNPORTED], ids=[i for _, i in _UNPORTED])
 def test_unported_config_raises(overrides):
     """The flagship's published defaults pass (a run dir, early stopping,
-    FID), and so do mnist's. Still refused: mnist's metric analysis
-    (module 9) and power's visualiser into a run dir, the orbax checkpoint
-    backend, and the rest."""
+    FID), and so do mnist's. Still refused: mnist's metric and centering
+    analyses (module 9) into a run dir, the orbax checkpoint backend, and
+    the rest."""
     config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)

@@ -108,6 +108,25 @@ Phases, each of which fails the run on its own failure:
                   on the same weights; the stump accuracies of the OOD
                   battery's rule on the two outputs.
 
+16. metric-mnist -- the image metric analysis of the phase-11 mnist model at
+                  its defaults (256 images: the g_kk and latent-variance
+                  sorts, MACS, the prominent-z sweeps and the three grids),
+                  the effective-z curves and the per-dimension FID (on each
+                  image's centred mean: on raw pixels the FID raises in both
+                  packages, and the phase prints the covariance that makes it
+                  raise), the centring at 8: the coupler kernel's launches
+                  must equal the routed calls times the 10 couplings; each
+                  routed call at B = 1, 4, 7, 8, 10, 16, 32, 64, 128, 256
+                  against the conv route; the Jacobian's numbers (4 points),
+                  the effective-z curves (16), the sweeps and the grids, card
+                  against CPU; a full-width d=2 model's two-dim manifold
+                  grid against the conv route and the CPU; the battery's
+                  seconds and parts, the kernel's ms at B = 1, 10, 64, 256;
+                  ``load_run`` on phase 8's run dir bit-equal to its
+                  ``best_valid``; ``--print-model`` on the card equal to
+                  the CPU's; ``--profile-dir`` on miniboone for 3 epochs, its
+                  trace naming both Gram/log-det kernels.
+
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. It imports nothing of JAX and nothing of ``cmf_tpu``.
@@ -254,6 +273,34 @@ INCEPTION_CPU_TOL = 1e-4
 # Gram of JVP columns through ten ResNet couplers, fp32 both sides.
 OOD_TOL = 1e-4
 OOD_IMAGES = 100
+# The image metric analysis of the phase-11 mnist model: its defaults (256
+# images, d = 20), the centring at 8, the per-dimension FID at 512 samples a
+# k in batches of 128. Kernel-routed calls (encodes, decodes, fixed samples;
+# each crosses the 10 couplings): image_metric_analysis 2 encodes + 4 sweeps
+# + 5 cumulative, 1 + 15 combined and 1 + 4 hierarchical grid samples; the
+# effective-z curves 1 encode + 11 decodes; the centring 2 + 2;
+# cumulative_dim_fid 1 encode + 20 x 4 decodes.
+METRIC_IMAGES = 256
+CENTERING_POINTS = 8
+CUMULATIVE_FID_SAMPLES = 512
+METRIC_ROUTED_CALLS = (2 + 4 + 5 + 16 + 5) + (1 + 11) + 4 + (1 + 20 * 4)
+METRIC_TIMED_BATCHES = [1, 10, 64, 256]
+# Card against CPU: the Jacobian's numbers at 4 points (a full-width JVP of
+# 20 tangents on the CPU takes seconds an image), the effective-z curves at
+# 16. Their reconstruction MSE is a mean of squared differences of decodes
+# that carry the kernel's 3xTF32 error (1e-5 of the data range): 1e-4
+# relative; the FID of the centred image means, 1e-3 relative.
+METRIC_CPU_JAC_POINTS = 4
+METRIC_CPU_CURVE_POINTS = 16
+CURVE_RECON_TOL = 1e-4
+CURVE_FID_TOL = 1e-3
+# --profile-dir: miniboone for 3 epochs of 2 steps with the likelihood on,
+# so epoch 2, the one traced, replays the graph of both Gram/log-det kernels.
+PROFILE_ARGV = [
+    "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
+    "--config", "likelihood_warmup=False", "--config", "max_epochs=3", "--config", "max_dataset_size=800",
+    "--config", "early_stopping=False", "--config", "use_fid=False", "--config", "seed=0",
+]
 TRAIN_MNIST_ARGV = [
     "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--nosave",
     "--config", "likelihood_warmup=False", "--config", "early_stopping=False",
@@ -287,8 +334,10 @@ def cuda_ms(fn, iters=200, warmup=10):
 
 
 def profiled_device_ms(fn, name, iters=50):
-    """Device time per call of the kernels whose name contains ``name``, from
-    torch.profiler; None where the trace holds no device time."""
+    """Device time per call of the kernels whose name contains ``name``: the
+    summed durations of their events in a torch.profiler trace (its
+    ``key_averages`` came back without device time in later phases); None
+    where the trace holds none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -298,11 +347,8 @@ def profiled_device_ms(fn, name, iters=50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-        for e in prof.key_averages()
-        if name in e.key
-    )
+    total_us = sum(float(e.get("dur", 0)) for e in trace_events(prof)
+                   if e.get("ph") == "X" and e.get("cat") == "kernel" and name in e.get("name", ""))
     return total_us / iters / 1e3 if total_us else None
 
 
@@ -709,17 +755,21 @@ def host_ms(fn, n):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def device_union_and_span(prof):
-    """The union of a trace's device intervals (kernels, copies, fills) and
-    their span (first start to last end), in µs; (0, 0) for none."""
+def trace_events(prof):
+    """The events of a finished torch.profiler run's Chrome trace."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
+            return json.load(f).get("traceEvents", [])
+
+
+def device_union_and_span(prof):
+    """The union of a trace's device intervals (kernels, copies, fills) and
+    their span (first start to last end), in µs; (0, 0) for none."""
     intervals = sorted(
         (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-        for e in events
+        for e in trace_events(prof)
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
     )
     if not intervals:
@@ -1064,9 +1114,10 @@ def _restore_streams(streams):
     sys.stdout, sys.stderr = streams
 
 
-def phase_default(smi):
-    """The miniboone CLI with the published defaults, then ``--resume`` and
-    ``--test --resume`` on its run dir."""
+def phase_default(smi, root):
+    """The miniboone CLI with the published defaults into ``root``, then
+    ``--resume`` and ``--test --resume`` on its run dir; returns the run
+    dir."""
     import torch
     from cmf_tpu_torch.densities import nonsquare
     from cmf_tpu_torch.eval import fid
@@ -1075,9 +1126,6 @@ def phase_default(smi):
     from cmf_tpu_torch.training import experiment
     from cmf_tpu_torch.training.checkpoint import make_checkpoint
 
-    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
-    os.makedirs(runs, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=runs)
     streams = sys.stdout, sys.stderr
     try:
         # The main path: the counts are read right after it.
@@ -1190,7 +1238,7 @@ def phase_default(smi):
         assert math.isfinite(metrics["fid"]) and metrics["feature_extractor"] == "raw-features"
     finally:
         _restore_streams(streams)
-        shutil.rmtree(root, ignore_errors=True)
+    return run_dir
 
 
 def phase_default_sphere(smi):
@@ -1670,6 +1718,306 @@ def phase_ood(setup, smi):
         print(f"[ood] stump accuracy, mnist against fashion-mnist, on the {feature}: {acc:.4f}")
 
 
+class _RoutedCalls:
+    """Counts the density's encodes, decodes and fixed samples made under
+    inference mode, the coupler kernel's route: each crosses every
+    coupling once."""
+
+    NAMES = ("extract_latent", "decode", "_fixed_sample")
+
+    def __init__(self, density):
+        self.density, self.n = density, 0
+
+    def __enter__(self):
+        import torch
+
+        for name in self.NAMES:
+            def counted(*args, _fn=getattr(self.density, name), **kw):
+                if torch.is_inference_mode_enabled():
+                    self.n += 1
+                return _fn(*args, **kw)
+
+            setattr(self.density, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            delattr(self.density, name)
+
+
+class _PartTimes:
+    """Seconds spent in the named functions of ``module`` while in use, each
+    call synchronised with the card on both ends."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.seconds = module, names, dict.fromkeys(names, 0.0)
+
+    def __enter__(self):
+        import torch
+
+        self.saved = {name: getattr(self.module, name) for name in self.names}
+        for name, fn in self.saved.items():
+            def timed(*args, _fn=fn, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                return out
+
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def centred_means(x):
+    """Each image's mean value less 128, the middle of the data range: one
+    feature, over which the effective-z and per-dimension FIDs are well
+    posed. On raw pixels, or on region means, the one-pass fp32 covariance
+    (s2 - n mu mu^T, the JAX package's formula) of decodes from one active
+    latent has eigenvalues below the last jitter, and both packages raise
+    (ROADMAP §3); the centred mean's variance keeps its sign."""
+    return (x.mean(dim=(1, 2, 3)) - 128.0)[:, None]
+
+
+def timed_s(fn):
+    """(fn(), seconds), synchronised with the card on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _against(tag, got, ref, tol):
+    """max |got - ref| / max |ref| within ``tol``, printed."""
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+    print(f"[metric-mnist] {tag}: max err / max |ref| {err:.3e} (tol {tol:g})")
+    assert np.isfinite(got).all() and np.isfinite(ref).all(), f"{tag}: non-finite values"
+    assert err <= tol, f"{tag}: disagrees"
+    return err
+
+
+def phase_metric_mnist(setup, default_run_dir, root, smi):
+    """The image metric and centering analyses of the phase-11 mnist model on
+    the card; kernel route against conv route at every batch size of the
+    path; card against CPU; the two-dim manifold; ``load_run``,
+    ``--print-model`` and ``--profile-dir``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from cmf_tpu_torch.config import get_schema
+    from cmf_tpu_torch.eval import fid
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.training import experiment
+    from cmf_tpu_torch.training.checkpoint import make_checkpoint
+    from cmf_tpu_torch.viz import metric_analysis as ma
+
+    phase_t0 = time.perf_counter()
+    density, dev = setup["density"], setup["device"]
+    x_all = torch.tensor(setup["train_loader"].x[:METRIC_IMAGES], device=dev)
+    latent = mnist_head(density).latent_dimension
+    fid_noise = torch.randn((CUMULATIVE_FID_SAMPLES, latent), generator=torch.Generator().manual_seed(3))
+    parts = ("g_kk_sort", "macs", "latent_variance_sort", "prominent_z_sweeps", "prominent_z_cumulative",
+             "prominent_z_combined", "prominent_z_hierarchical")
+
+    # The main path: the counts are read right after it.
+    with _RoutedCalls(density) as routed, _PartTimes(ma, parts) as times:
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = ma.image_metric_analysis(density, x_all)
+        torch.cuda.synchronize()
+        core_s = time.perf_counter() - t0
+        order = out["metric_analysis"]["latent_variance_order"]
+        (recon, fids), curves_s = timed_s(lambda: ma.effective_z_curves(density, x_all, order, centred_means))
+        (centred, centred_c), centring_s = timed_s(lambda: ma.centering_recons(density, x_all[:CENTERING_POINTS]))
+        curve, cumulative_s = timed_s(lambda: ma.cumulative_dim_fid(density, x_all, fid_noise, order,
+                                                                    centred_means))
+        launches = cs.LAUNCHES
+    seconds = core_s + curves_s + centring_s + cumulative_s
+    payload = out["metric_analysis"]
+    jac_s = times.seconds["g_kk_sort"] + times.seconds["macs"]
+    grids_s = sum(times.seconds[k] for k in parts[3:])
+    print(f"[metric-mnist] image_metric_analysis at {METRIC_IMAGES} images, d={latent}: MACS "
+          f"{payload['macs']:.6g}, g_kk {payload['g_kk_sorted'][0]:.6g} .. {payload['g_kk_sorted'][-1]:.6g}, "
+          f"cumulative variance at 5 axes {payload['cumulative_variance'][4]:.6g}; sweeps "
+          f"{out['sweeps'].shape}; grids {', '.join(f'{k} {v[0].shape} nrow {v[1]}' for k, v in out['grids'].items())}")
+    print(f"[metric-mnist] effective-z (centred image means) recon {', '.join(f'{k}: {v:.6g}' for k, v in recon.items())}; "
+          f"FID {', '.join(f'{k}: {v:.6g}' for k, v in fids.items())}")
+    print(f"[metric-mnist] cumulative_dim_fid (centred image means, {CUMULATIVE_FID_SAMPLES} samples a k): "
+          f"{', '.join(f'{v:.6g}' for v in curve)}; centring recons {centred.shape}, {centred_c.shape}")
+    print(f"[metric-mnist] {smi}: the battery took {seconds:.4f} s: image_metric_analysis {core_s:.4f} s "
+          f"(Jacobians: g_kk_sort {times.seconds['g_kk_sort']:.4f} + macs {times.seconds['macs']:.4f} = "
+          f"{jac_s:.4f} s; latent_variance_sort {times.seconds['latent_variance_sort']:.4f} s; sweeps and grids "
+          f"{grids_s:.4f} s), effective-z curves {curves_s:.4f} s, centring {centring_s:.4f} s, "
+          f"cumulative_dim_fid {cumulative_s:.4f} s (host clock, synchronised)")
+    print(f"[metric-mnist] {routed.n} kernel-routed calls (expected {METRIC_ROUTED_CALLS}), coupler kernel "
+          f"launches {launches} (expected {routed.n} x {MNIST_COUPLINGS})")
+    assert all(np.isfinite(v) for v in list(recon.values()) + list(fids.values()) + curve)
+    assert np.isfinite(payload["macs"]) and np.isfinite(out["sweeps"]).all()
+    assert all(np.isfinite(v[0]).all() for v in out["grids"].values())
+    assert routed.n == METRIC_ROUTED_CALLS, "the battery made another number of routed calls"
+    assert launches == routed.n * MNIST_COUPLINGS, "coupler launches != routed calls x couplings"
+
+    # At defaults the effective-z FID is on raw pixels: the covariance of the
+    # k = 1 decodes, against the 1e-2 jitter that frechet_distance tries last.
+    z_all = ma.encode(density, x_all)
+    one = ma.decode(density, z_all * ma._mask(latent, order[:1], dev))
+    eig = np.linalg.eigvalsh(fid.activation_statistics(iter([one]))[1].astype(np.float64))
+    print(f"[metric-mnist] raw-pixel effective-z FID at k=1 (the defaults): the fp32 covariance of the "
+          f"{METRIC_IMAGES} decodes has eigenvalues {eig[0]:.6g} .. {eig[-1]:.6g}, {int((eig < -1e-2).sum())} "
+          f"below -1e-2: cmf_tpu's frechet_distance raises there, and so does the port's (ROADMAP §3)")
+
+    # Kernel route against conv route at each batch size of the path.
+    noise, seeds = (t.to(dev) for t in ma.prominent_z_noise(order))
+    sweep = z_all.mean(dim=0).repeat(7, 1)
+    cases = {
+        1: [("fixed_sample", noise[:1])],
+        4: [("fixed_sample", noise[:4])],
+        7: [("decode", sweep)],
+        8: [("extract_latent", x_all[:8]), ("decode", z_all[:8]), ("fixed_sample", noise[:8])],
+        10: [("fixed_sample", noise)],
+        16: [("fixed_sample", torch.cat([noise] * 2)[:16])],
+        32: [("fixed_sample", torch.cat([noise] * 4)[:32])],
+        128: [("decode", z_all[:128])],
+        256: [("extract_latent", x_all), ("decode", z_all)],
+    }
+    cs.reset_launch_counts()
+    for b, calls in sorted(cases.items()):
+        for name, arg in calls:
+            kernel = {"fixed_sample": lambda a: density.fixed_sample(a),
+                      "decode": lambda a: ma.decode(density, a),
+                      "extract_latent": lambda a: ma.encode(density, a)}[name](arg)
+            with torch.no_grad():
+                conv = (density._fixed_sample(arg) if name == "fixed_sample" else getattr(density, name)(arg))
+            _against(f"B={b} {name}: kernel route vs conv route", kernel.cpu(), conv.cpu(), SAMPLE_TOL)
+    n_compared = sum(len(c) for c in cases.values())
+    assert cs.LAUNCHES == n_compared * MNIST_COUPLINGS
+
+    # The two-dim manifold: a full-width d=2 model, its 8x8 grid (B=64).
+    schema2 = get_schema({**setup["config"], "latent_dimension": 2})
+    gen = torch.Generator().manual_seed(0)
+    two = get_density(schema2, x_shape=(1, 28, 28), device=dev, generator=gen)
+    cs.reset_launch_counts()
+    grid = experiment.two_dim_manifold_grid(two)
+    torch.cuda.synchronize()
+    grid_launches = cs.LAUNCHES
+    latents = torch.as_tensor(experiment.two_dim_manifold_latents(), device=dev)
+    with torch.no_grad():
+        grid_conv = two.decode(latents).cpu().numpy()
+    two_cpu = get_density(schema2, x_shape=(1, 28, 28), device="cpu")
+    two_cpu.load_state_dict({k: v.cpu() for k, v in two.state_dict().items()})
+    grid_cpu = experiment.two_dim_manifold_grid(two_cpu)
+    print(f"[metric-mnist] two-dim manifold grid {grid.shape} in [{grid.min():.4g}, {grid.max():.4g}], "
+          f"{grid_launches} coupler launches")
+    assert grid.shape == (64, 1, 28, 28) and grid_launches == MNIST_COUPLINGS
+    _against("B=64 two-dim manifold: kernel route vs conv route", grid, grid_conv, SAMPLE_TOL)
+    _against("two-dim manifold: card vs CPU", grid, grid_cpu, SAMPLE_TOL)
+
+    # Card against CPU on the same weights and draws.
+    cpu = get_density(setup["schema"], x_shape=(1, 28, 28), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in density.state_dict().items()})
+    z4 = z_all[:METRIC_CPU_JAC_POINTS]
+    t0 = time.perf_counter()
+    card_g, card_order = ma.g_kk_sort(density, z4)
+    cpu_g, cpu_order = ma.g_kk_sort(cpu, z4.cpu())
+    card_macs, card_cos = ma.macs(density, z4)
+    cpu_macs, cpu_cos = ma.macs(cpu, z4.cpu())
+    jac_cpu_s = time.perf_counter() - t0
+    _against(f"g_kk at {METRIC_CPU_JAC_POINTS} points: card vs CPU", card_g, cpu_g, METRIC_TOL)
+    print(f"[metric-mnist] g_kk order equal {bool((card_order == cpu_order).all())}; MACS card "
+          f"{card_macs:.8g}, CPU {cpu_macs:.8g} ({jac_cpu_s:.2f} s for both sides)")
+    _against("MACS: card vs CPU", [card_macs], [cpu_macs], METRIC_TOL)
+    _against("|cos| matrix: card vs CPU", card_cos, cpu_cos, METRIC_TOL)
+    x16 = x_all[:METRIC_CPU_CURVE_POINTS]
+    t0 = time.perf_counter()
+    card_rec, card_fid = ma.effective_z_curves(density, x16, order, centred_means)
+    cpu_rec, cpu_fid = ma.effective_z_curves(cpu, x16.cpu(), order, centred_means)
+    curves_cpu_s = time.perf_counter() - t0
+    print(f"[metric-mnist] effective-z at {METRIC_CPU_CURVE_POINTS} points, card vs CPU ({curves_cpu_s:.2f} s):")
+    _against("  recon", list(card_rec.values()), list(cpu_rec.values()), CURVE_RECON_TOL)
+    _against("  FID", list(card_fid.values()), list(cpu_fid.values()), CURVE_FID_TOL)
+    t0 = time.perf_counter()
+    for name, fn, draw in (("samples_cumulative", ma.prominent_z_cumulative, noise),
+                           ("samples_sequential", ma.prominent_z_combined, noise),
+                           ("samples_hierarchical", ma.prominent_z_hierarchical, seeds)):
+        imgs, nrow = fn(cpu, order, draw.cpu())
+        assert nrow == out["grids"][name][1]
+        _against(f"{name} grid: card vs CPU", out["grids"][name][0], imgs, SAMPLE_TOL)
+    print(f"[metric-mnist] grids on the CPU: {time.perf_counter() - t0:.2f} s")
+    _against("sweeps: card vs CPU", out["sweeps"], ma.prominent_z_sweeps(cpu, z_all.cpu(), order), SAMPLE_TOL)
+
+    # The coupler kernel's time at the path's batch sizes: the 28x28
+    # checkerboard coupler (1->2 channels, hidden 64, 8 blocks).
+    net = next(m for m in density.modules() if type(m).__name__ == "ResNet" and m.conv_in.w.shape[1] == 1)
+    blocks, hidden, c_out = len(net.blocks), net.c_hidden, net.conv_out.w.shape[0]
+    n_weights = sum(p.numel() for p in net.parameters())
+    for b in METRIC_TIMED_BATCHES:
+        xb = torch.randn((b, 1, 28, 28), generator=torch.Generator().manual_seed(b)).to(dev)
+        with torch.no_grad():
+            params = net.kernel_params()
+            ms = cuda_ms(lambda: cs.coupler_stack_cuda(xb, params), iters=20, warmup=3)
+            device_ms = profiled_device_ms(lambda: cs.coupler_stack_cuda(xb, params), "coupler_stack_kernel",
+                                           iters=10)
+            library_ms = cuda_ms(lambda: net(xb), iters=20, warmup=3)
+        n_flops = cs.flops(b, 1, hidden, c_out, blocks, 28, 28)
+        n_tc = cs.tensor_core_flops(b, hidden, blocks, 28, 28)
+        b_ms, b_by = bound_ms(4 * (xb.numel() + n_weights + b * c_out * 28 * 28), n_flops - n_tc, 3 * n_tc)
+        dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
+        print(f"[metric-mnist] {smi}: coupler_stack B={b} 1->2 28x28 (plan: cluster "
+              f"{cs.plan_launch(b, 1, hidden, 28, 28).cluster}): {ms:.6f} ms a call back to back (CUDA "
+              f"events), kernel device time {dev_txt}; bound {b_ms:.6f} ms ({b_by}, 3xTF32); cuDNN module "
+              f"(fp32) {library_ms:.6f} ms")
+
+    # load_run on the default run dir: bit-equal to its best_valid checkpoint.
+    run = experiment.load_run(default_run_dir)
+    saved = torch.load(os.path.join(default_run_dir, "checkpoints", "best_valid.pt"), weights_only=True)
+    loaded = make_checkpoint(run["trainer"])
+    tensors = [(sec, k) for sec in ("params", "model_state", "opt_states") for k in saved[sec]]
+    same = all(torch.equal(loaded[sec][k], saved[sec][k]) for sec, k in tensors)
+    print(f"[metric-mnist] load_run: restored `{run['trainer'].restored_from}' after epoch "
+          f"{run['trainer'].epoch}; {len(tensors)} tensors bit-equal to best_valid.pt {same}")
+    assert run["trainer"].restored_from == "best_valid" and same, "load_run differs from best_valid"
+
+    # --print-model on the card and on the CPU.
+    texts = []
+    for extra in ([], ["--device", "cpu"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_main(["--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--print-model"] + extra)
+        texts.append(buf.getvalue())
+    print(f"[metric-mnist] --print-model: {texts[0].count(chr(10))} lines, card and CPU equal {texts[0] == texts[1]}")
+    assert texts[0] == texts[1] and texts[0].startswith("DequantizationDensity")
+
+    # --profile-dir: a torch.profiler trace of epoch 2 of a miniboone run.
+    profile_dir = os.path.join(root, "profile")
+    gl.reset_launch_counts()
+    (prof_setup,) = cli_main(PROFILE_ARGV + ["--profile-dir", profile_dir])
+    path = prof_setup["trainer"].profile_path
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = sorted(n for n in names if "gram_logdet" in n and "kernel" in n)
+    print(f"[metric-mnist] --profile-dir: {os.path.basename(path)}, {len(names)} event names; Gram/log-det "
+          f"kernels named: {kernels}")
+    assert path.endswith("trace_epoch2.json")
+    assert any("gram_logdet_fwd_kernel" in n for n in kernels), "the trace names no forward kernel"
+    assert any("gram_logdet_bwd_kernel" in n for n in kernels), "the trace names no backward kernel"
+    print(f"[metric-mnist] the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -1683,15 +2031,22 @@ def main():
     counts, step_ms = phase_train()
     phase_captured(step_ms)
     phase_warmup()
-    phase_default(smi)
-    phase_default_sphere(smi)
-    phase_cmf_battery(smi)
-    setup = phase_train_mnist()
-    phase_sample(setup)
-    phase_inception(smi)
-    mnist_setup, coupler_launches = phase_default_mnist(smi)
-    counts["COUPLER_LAUNCHES"] = coupler_launches
-    phase_ood(mnist_setup, smi)
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
+    os.makedirs(runs, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=runs)
+    try:
+        default_run_dir = phase_default(smi, root)
+        phase_default_sphere(smi)
+        phase_cmf_battery(smi)
+        setup = phase_train_mnist()
+        phase_sample(setup)
+        phase_inception(smi)
+        mnist_setup, coupler_launches = phase_default_mnist(smi)
+        counts["COUPLER_LAUNCHES"] = coupler_launches
+        phase_ood(mnist_setup, smi)
+        phase_metric_mnist(setup, default_run_dir, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for k in kernels:
         k["launches"] = counts[k.pop("_launches_key")]
         assert k["launches"] > 0, f"{k['name']} was never launched on its path"

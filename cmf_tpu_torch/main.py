@@ -1,19 +1,26 @@
 """CLI for the port: ``python -m cmf_tpu_torch --model non-square --dataset
 {sphere,hemisphere-2-6,miniboone,mnist,...} --config key=value ... [--device cpu]``,
-then ``--resume <run dir>`` to train on, ``--test --resume <run dir>``, or
-``--test-ood --resume <run dir>`` (the OOD battery of an image run).
+then ``--resume <run dir>`` to train on, or one of the analyses of a finished
+run: ``--test``, ``--test-ood`` (the OOD battery of an image run),
+``--test-metric`` (the image metric analysis: g_kk and latent-variance
+sorts, MACS, prominent-z sweeps and grids, the effective-z curves in
+``test_metric/{recon,fid}.json``), ``--test-center`` (the centering
+reconstructions) or ``--two-dim-manifold`` (the decoded 8×8 latent grid of a
+d=2 mnist or fashion-mnist run), each with ``--resume <run dir>``.
 
 The flags and the ``--config key=value`` mini-language are those of the JAX
 package's ``main.py`` (values typed by ``ast.literal_eval``), for the subset
-the port carries so far: training, resuming, the test pass and the OOD
-battery, and ``--print-config``, ``--print-schema`` and
-``--print-num-params``. ``--resume``
-reads the run's ``config.json`` and ignores the other settings. Without
-``--device cpu`` it runs on the card, and raises where there is none.
+the port carries so far: training, resuming, the analyses above,
+``--profile-dir`` (a ``torch.profiler`` trace of the second epoch),
+``--print-config``, ``--print-schema``, ``--print-model`` and
+``--print-num-params``. ``--resume`` reads the run's ``config.json`` and
+ignores the other settings. Without ``--device cpu`` it runs on the card,
+and raises where there is none.
 """
 
 import argparse
 import ast
+import contextlib
 import json
 import pprint
 import time
@@ -49,13 +56,21 @@ def build_parser():
     parser.add_argument("--rundir-tail", default="", help="Suffix for the run directory name.")
     parser.add_argument("--print-config", action="store_true")
     parser.add_argument("--print-schema", action="store_true")
+    parser.add_argument("--print-model", action="store_true")
     parser.add_argument("--print-num-params", action="store_true")
     parser.add_argument("--test", action="store_true", help="Test model and exit instead of training.")
     parser.add_argument("--overwrite-metrics", action="store_true")
     parser.add_argument("--test-fid", action="store_true", help="Use test dataset for FID.")
     parser.add_argument("--test-ood", action="store_true", help="Test out-of-distribution metrics.")
+    parser.add_argument("--test-metric", action="store_true", help="Test metric tensor.")
+    parser.add_argument("--test-center", action="store_true",
+                        help="Centering analysis plots (reference experiment.py:213 centering_test_plots).")
+    parser.add_argument("--two-dim-manifold", action="store_true",
+                        help="Visualize the two-dim manifold for image data when d=2.")
     parser.add_argument("--synthetic-data", action="store_true",
                         help="Use shape-matched synthetic stand-ins for tabular and image data.")
+    parser.add_argument("--profile-dir", default=None,
+                        help="Write a torch.profiler trace of the first post-capture epoch here.")
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
                         help="Default: the card. `cpu' runs the plain PyTorch path.")
     return parser
@@ -65,11 +80,17 @@ def main(argv=None):
     """Returns one result per job: the experiment's setup when training;
     when testing, ``test_and_visualize``'s (the results under
     ``"results"``); with ``--test-ood``, ``{"ood": {(label, split): array},
-    "classification": {"<split>/<feature>": accuracy}}``."""
+    "classification": {"<split>/<feature>": accuracy}}``; with
+    ``--two-dim-manifold`` the decoded (64, C, H, W) grid; with
+    ``--test-metric`` the analysis's numbers; with ``--test-center`` the
+    inputs and their two reconstructions."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if (args.test or args.test_fid or args.test_ood) and args.resume is None:
-        parser.error("--test, --test-fid and --test-ood need --resume <run dir>")
+    analyses = (args.test, args.test_fid, args.test_ood, args.test_metric, args.test_center,
+                args.two_dim_manifold)
+    if any(analyses) and args.resume is None:
+        parser.error("--test, --test-fid, --test-ood, --test-metric, --test-center and "
+                     "--two-dim-manifold need --resume <run dir>")
     if args.resume is None:
         if args.model is None or args.dataset is None:
             parser.error("--model and --dataset are required without --resume")
@@ -88,6 +109,7 @@ def main(argv=None):
             "logdir_root": args.logdir_root,
             "rundir_tail": args.rundir_tail,
             "synthetic_data": args.synthetic_data or None,
+            "profile_dir": args.profile_dir,
         }
     else:
         with open(Path(args.resume) / "config.json") as f:
@@ -100,6 +122,12 @@ def main(argv=None):
         pprint.PrettyPrinter(indent=4).pprint(config)
         should_train = False
     grid = expand_grid(config)
+    if args.print_model:
+        from .training import print_model
+
+        for c in grid:
+            print_model({**c, "seed": c.get("seed", 0)}, device=args.device)
+        should_train = False
     if args.print_num_params:
         from .training import print_num_params
 
@@ -107,27 +135,52 @@ def main(argv=None):
             print_num_params({**c, "seed": c.get("seed", 0)}, device=args.device)
         should_train = False
     if args.print_schema:
-        for c in grid:
-            print(json.dumps(get_schema(c), indent=4))
+        if len(grid) == 1:
+            print(json.dumps(get_schema(grid[0]), indent=4))
+        else:
+            for i, c in enumerate(grid):
+                if i > 0:
+                    print()
+                print("=" * 10 + f" Schema {i} " + "=" * 10 + "\n")
+                print(json.dumps(get_schema(c), indent=4))
         should_train = False
     if not (should_train or args.test):
         return []
 
-    from .training import generate_ood_metrics, ood_classification, test_and_visualize, train
+    from .training import (
+        centering_test_plots,
+        generate_ood_metrics,
+        metric_test_plots,
+        ood_classification,
+        test_and_visualize,
+        train,
+        visualize_two_dim_manifold,
+    )
 
-    results = []
+    jobs = []
     for c in grid:
         for _ in range(args.num_seeds):
             if "seed" not in c or args.num_seeds > 1:
                 c = {**c, "seed": int(time.time() * 1e6) % 2**32}
+            jobs.append(dict(c))
+
+    results = []
+    with contextlib.suppress(KeyboardInterrupt):
+        for c in jobs:
             if args.test or args.test_fid:
                 results.append(test_and_visualize(
-                    config=dict(c), resume_dir=args.resume, overwrite=args.overwrite_metrics,
+                    config=c, resume_dir=args.resume, overwrite=args.overwrite_metrics,
                     test_fid=args.test_fid, device=args.device,
                 ))
+            elif args.two_dim_manifold:
+                results.append(visualize_two_dim_manifold(config=c, resume_dir=args.resume, device=args.device))
             elif args.test_ood:
-                ood = generate_ood_metrics(config=dict(c), resume_dir=args.resume, device=args.device)
+                ood = generate_ood_metrics(config=c, resume_dir=args.resume, device=args.device)
                 results.append({"ood": ood, "classification": ood_classification(args.resume)})
+            elif args.test_metric:
+                results.append(metric_test_plots(config=c, resume_dir=args.resume, device=args.device))
+            elif args.test_center:
+                results.append(centering_test_plots(config=c, resume_dir=args.resume, device=args.device))
             else:
-                results.append(train(config=dict(c), resume_dir=args.resume, device=args.device))
+                results.append(train(config=c, resume_dir=args.resume, device=args.device))
     return results

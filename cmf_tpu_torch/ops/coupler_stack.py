@@ -34,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.autograd import forward_ad
 
 LAUNCHES = 0
 CALLS = 0
@@ -391,8 +392,16 @@ def fused_resnet_coupler(x, params):
     """Coupler output (B, C_out, H, W), the same function as ``ResNet.apply``
     of the batchnorm-free net. Forward only: it has no derivative rule, so
     callers route only inference through it (``nets/core.py``), and only
-    shapes ``coupler_kernel_available`` admits."""
+    shapes ``coupler_kernel_available`` admits. A tensor that carries a
+    forward-mode tangent or sits inside a ``torch.func`` transform (a JVP,
+    a vmap) raises on every device, rather than losing its tangent in the
+    kernel."""
     global CALLS
+    if torch._C._functorch.is_functorch_wrapped_tensor(x) or forward_ad.unpack_dual(x).tangent is not None:
+        raise RuntimeError(
+            "fused_resnet_coupler has no forward-mode or batching rule: run JVPs and vmaps of a "
+            "ResNet coupler outside torch.inference_mode(), where it takes the conv modules"
+        )
     CALLS += 1
     if x.is_cuda:
         return coupler_stack_cuda(x, params)

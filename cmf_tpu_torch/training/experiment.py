@@ -1,4 +1,4 @@
-"""Experiment setup and the train, test and OOD entry points
+"""Experiment setup and the train, test, OOD and analysis entry points
 (``cmf_tpu/training/experiment.py`` in torch).
 
 Setup follows experiment.py:148-302: loaders, schema, density, objective,
@@ -7,6 +7,13 @@ function (on image data over the features of ``eval/inception.py``) and the
 trainer. Adam is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``,
 the same update as optax ``scale_by_adam`` followed by
 ``scale_by_learning_rate`` (experiment.py:89-131).
+
+The analyses of a finished run (experiment.py:433-544): ``load_run``, the
+image metric analysis (``metric_test_plots``), the centering analysis
+(``centering_test_plots``), the two-dim manifold grid
+(``visualize_two_dim_manifold``), and ``describe_density`` /
+``print_model``. Each restores the run's ``best_valid`` checkpoint, else
+``latest``; those that draw need matplotlib, checked before any work.
 
 A config that asks for something this slice does not carry raises
 ``NotImplementedError`` here, before any work: it is never quietly skipped.
@@ -196,6 +203,7 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
         should_checkpoint_latest=config.get("should_checkpoint_latest", True),
         should_checkpoint_best_valid=config.get("should_checkpoint_best_valid", True),
         only_testing=testing,
+        profile_dir=config.get("profile_dir"),
     )
     return {
         "density": density,
@@ -209,15 +217,43 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     }
 
 
-def print_num_params(config, device=None):
-    """Print the parameter count of ``config``'s model (experiment.py:549-552),
-    built on ``device`` (``None`` for the card, raising without one, or
-    ``"cpu"``)."""
+def _build_density(config, device):
+    """``config``'s model on ``device`` (``None`` for the card, raising
+    without one, or ``"cpu"``), its data shape from the loaders."""
     device = resolve_device(device)
     loaders = get_loaders(config["dataset"], config, device, seed=config["seed"],
                           synthetic=config.get("synthetic_data"), data_root=config.get("data_root"))
-    density = get_density(get_schema(config), x_shape=loaders[0].x_shape, device=device)
-    print(f"Number of parameters: {num_params(density)}")
+    return get_density(get_schema(config), x_shape=loaders[0].x_shape, device=device)
+
+
+def print_num_params(config, device=None):
+    """Print the parameter count of ``config``'s model (experiment.py:549-552)."""
+    print(f"Number of parameters: {num_params(_build_density(config, device))}")
+
+
+def describe_density(density, indent=0):
+    """The density tree as the JAX package's ``describe_density`` writes it
+    (experiment.py:516-536): each density's class name, its bijection with
+    the bijection's parts, then its ``density``, ``density_1``,
+    ``density_2`` and ``prior``, indented."""
+    pad = "  " * indent
+    lines = [f"{pad}{type(density).__name__}"]
+    child = getattr(density, "bijection", None)
+    if child is not None:
+        lines.append(f"{pad}  (bijection): {type(child).__name__}")
+        for b in getattr(child, "bijections", None) or []:
+            lines.append(f"{pad}    - {type(b).__name__}")
+    for attr in ("density", "density_1", "density_2", "prior"):
+        child = getattr(density, attr, None)
+        if child is not None and hasattr(child, "elbo"):
+            lines.append(f"{pad}  ({attr}):")
+            lines.append(describe_density(child, indent + 2))
+    return "\n".join(lines)
+
+
+def print_model(config, device=None):
+    """Print ``config``'s density tree (experiment.py:539-541)."""
+    print(describe_density(_build_density(config, device)))
 
 
 def _write_run_metadata(writer, config, density):
@@ -353,3 +389,92 @@ def ood_classification(resume_dir):
             results[f"{split}/{feature}"] = acc
             print(f"OOD classification rate ({split}, {feature}): {acc:.4f}")
     return results
+
+
+def load_run(resume_dir, device=None):
+    """A finished run's config and model, restored from ``best_valid``,
+    else ``latest`` (experiment.py:433-446): {"density", "config",
+    "trainer"}."""
+    with open(os.path.join(resume_dir, "config.json")) as f:
+        config = json.load(f)
+    setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
+    return {"density": setup["density"], "config": config, "trainer": setup["trainer"]}
+
+
+def _analyse(config, resume_dir, device):
+    """The visualiser of ``config`` run once over the restored run, its
+    figures and files into ``resume_dir`` (experiment.py:492-513); returns
+    what it returns."""
+    viz.check_visualizer(config, write_folder=resume_dir)
+    setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
+    visualizer = viz.get_visualizer(config, DummyWriter(), train_data=setup["train_loader"].x,
+                                    write_folder=resume_dir)
+    return visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
+
+
+def metric_test_plots(config, resume_dir, device=None):
+    """The image metric analysis of a finished run (experiment.py:492-501):
+    ``metric_analysis.pdf``, ``prominent_z.pdf``, the prominent-z grids under
+    ``plotted_samples_prominent_d/`` and ``test_metric/{recon,fid}.json``
+    in the run dir; returns ``viz.metric_analysis.image_metric_analysis``'s
+    numbers."""
+    return _analyse({**config, "test_metric": True, "use_fid": False}, resume_dir, device)
+
+
+def centering_test_plots(config, resume_dir, device=None):
+    """The centering analysis of a finished run (experiment.py:504-513):
+    ``centering.pdf`` in the run dir; returns (inputs, recon, centred
+    recon)."""
+    return _analyse({**config, "test_center": True, "use_fid": False}, resume_dir, device)
+
+
+TWO_DIM_GRID = (8, -3.0, 3.0)  # points a side, low, high
+
+
+def two_dim_manifold_latents():
+    """The 8×8 grid of latents over [-3, 3]², rows from z₂ = 3 down,
+    columns from z₁ = -3 (experiment.py:459-467): (64, 2) float32."""
+    n_grid, lo, hi = TWO_DIM_GRID
+    xv, yv = np.meshgrid(np.linspace(lo, hi, n_grid), np.linspace(hi, lo, n_grid))
+    return np.stack([xv.reshape(-1), yv.reshape(-1)], axis=1).astype(np.float32)
+
+
+def two_dim_manifold_grid(density):
+    """The grid's latents decoded under inference mode (the coupler
+    kernel): (64, C, H, W) numpy."""
+    latents = torch.as_tensor(two_dim_manifold_latents(), device=next(density.parameters()).device)
+    with torch.inference_mode():
+        return density.decode(latents).cpu().numpy()
+
+
+def draw_two_dim_manifold(images, path):
+    """The grid of ``two_dim_manifold_grid`` as one image over the latent
+    square, saved to ``path`` (experiment.py:470-485)."""
+    from ..viz.visualizer import _pyplot
+
+    plt = _pyplot()
+    n_grid, lo, hi = TWO_DIM_GRID
+    c, h, w = images.shape[1:]
+    grid_img = (np.clip(images, 0, 256) / 256.0).reshape(n_grid, n_grid, c, h, w)
+    grid_img = grid_img.transpose(2, 0, 3, 1, 4).reshape(c, n_grid * h, n_grid * w)
+    fig, ax = plt.subplots(figsize=(8, 8))
+    ax.imshow(np.moveaxis(grid_img, 0, 2).squeeze(), cmap="gray" if c == 1 else None,
+              extent=[lo, hi, lo, hi])
+    ax.set_xlabel("$z_1$")
+    ax.set_ylabel("$z_2$")
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def visualize_two_dim_manifold(config, resume_dir, device=None):
+    """The two-dim manifold of a finished d=2 mnist or fashion-mnist run
+    (experiment.py:449-485): ``two_dim_manifold.pdf`` in the run dir;
+    returns the decoded (64, C, H, W) grid."""
+    assert config["dataset"] in ["mnist", "fashion-mnist"]
+    assert config["latent_dimension"] == 2
+    viz.require_matplotlib("--two-dim-manifold", "it needs a machine where matplotlib imports")
+    config = {**config, "test_metric": False, "use_fid": False}
+    setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
+    images = two_dim_manifold_grid(setup["density"])
+    draw_two_dim_manifold(images, os.path.join(resume_dir, "two_dim_manifold.pdf"))
+    return images

@@ -38,9 +38,16 @@ The train telemetry (loss, grad norm, lr every 10 steps) is written from
 the epoch's one read. At start-up the trainer restores ``latest``, else
 ``best_valid`` (``best_valid`` first when only testing), by copying into its
 tensors, so the graphs it captures later train the restored state.
+
+With a ``profile_dir``, the first epoch after the first that trains (epoch
+2: its steps replay the graphs epoch 1 captured) runs under
+``torch.profiler`` (CPU and, on the card, CUDA activities) and its Chrome
+trace goes into that folder, once a trainer, as the JAX trainer traces its
+first post-compile epoch with ``jax.profiler`` (trainer.py:113-116,255-259).
 """
 
 import math
+import os
 import sys
 import time
 from contextlib import contextmanager
@@ -142,6 +149,7 @@ class Trainer:
         should_checkpoint_latest=True,
         should_checkpoint_best_valid=True,
         only_testing=False,
+        profile_dir=None,
     ):
         self.density = density
         # Draws the dequantization noise, the Hutchinson probes, the FID
@@ -166,6 +174,9 @@ class Trainer:
         self.fid_function = fid_function
         self.should_checkpoint_latest = should_checkpoint_latest
         self.should_checkpoint_best_valid = should_checkpoint_best_valid
+        self.profile_dir = profile_dir
+        # The Chrome trace written, once a trainer.
+        self.profile_path = None
         self.params = [p for p in density.parameters() if p.requires_grad]
         _init_adam_state(optimizer)
         self.best_valid_loss = float("inf")
@@ -218,6 +229,25 @@ class Trainer:
             entry = self.timings.setdefault(name, [0, 0.0])
             entry[0] += 1
             entry[1] += time.perf_counter() - start
+
+    @contextmanager
+    def _profiled(self, epoch):
+        """A ``torch.profiler`` trace of this epoch into ``profile_dir``,
+        where it is the first traced and not epoch 1."""
+        if self.profile_dir is None or self.profile_path is not None or epoch <= 1:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.params[0].is_cuda:
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            yield
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self.profile_path = os.path.join(self.profile_dir, f"trace_epoch{epoch}.json")
+        prof.export_chrome_trace(self.profile_path)
+        print(f"torch.profiler trace of epoch {epoch}: {self.profile_path}", flush=True)
 
     def step(self, x, flags):
         """One optimizer step by this trainer's route. Returns (loss,
@@ -315,7 +345,7 @@ class Trainer:
             raise NotImplementedError(
                 "a second optimizer group (m-flow) waits for a later slice of the port"
             )
-        with self._timed("train"):
+        with self._timed("train"), self._profiled(epoch):
             start = time.perf_counter()
             steps = [torch.stack(self.step(x, flags)) for x in self.train_loader]
             # The epoch's host reads: its losses and grad norms, and the count

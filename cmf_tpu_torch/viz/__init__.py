@@ -2,15 +2,14 @@
 
 ``reference_visualizer`` names the visualiser the JAX package's
 ``get_visualizer`` picks for a config. ``get_visualizer`` gives the port's:
-the image grid, the 2-D density, the 2-D and 3-D non-square and the 4/6-D
-non-square visualisers, and the dummy. The image metric and centering
-analyses wait for ROADMAP module 9: where one of them would leave anything
-behind (its writer keeps what it is given, or a ``write_folder`` is named)
-it raises ``NotImplementedError``; into a ``DummyWriter`` with no folder the
-JAX package's visualiser draws and keeps nothing, so there the port gives
-the dummy. Every visualiser but the dummy draws with matplotlib: a run dir
-(or a folder) for one of them needs it to import, checked here, before any
-training. The card has no matplotlib; ``--nosave`` runs need none.
+the image grid, the image metric analysis (``test_metric`` or
+``test_input_images``) and the centering analysis (``test_center``), the
+2-D density, the 2-D and 3-D non-square and the 4/6-D non-square
+visualisers, and the dummy. Every visualiser but the dummy draws with
+matplotlib: a run dir (or a folder) for one of them needs it to import,
+checked here, before any work. Into a ``DummyWriter`` with no folder the
+JAX package's visualisers keep nothing, and the port's skip the work there.
+The card has no matplotlib; ``--nosave`` runs need none.
 """
 
 import importlib.util
@@ -19,7 +18,11 @@ from ..data.image import DATASET_SHAPES as IMAGE_SHAPES
 from ..data.tabular import DATASET_SHAPES as TABULAR_SHAPES
 from ..data.two_d import _GENERATORS as TWO_D_GENERATORS, data_width
 from ..training.writer import DummyWriter
-from .metric_analysis import HighDimensionalNonSquareVisualizer
+from .metric_analysis import (
+    HighDimensionalNonSquareVisualizer,
+    ImageCenteringDensityVisualizer,
+    ImageMetricDensityVisualizer,
+)
 from .visualizer import (
     DummyDensityVisualizer,
     ImageDensityVisualizer,
@@ -28,13 +31,13 @@ from .visualizer import (
     TwoDimensionalNonSquareVisualizer,
 )
 
-_LATER = ("ImageMetricDensityVisualizer", "ImageCenteringDensityVisualizer")
-
 # The port's visualisers by the JAX package's class name:
 # (writer, train_data, config) -> visualiser.
 _FACTORIES = {
     "DummyDensityVisualizer": lambda writer, data, config: DummyDensityVisualizer(writer),
     "ImageDensityVisualizer": lambda writer, data, config: ImageDensityVisualizer(writer),
+    "ImageMetricDensityVisualizer": lambda writer, data, config: ImageMetricDensityVisualizer(writer, data),
+    "ImageCenteringDensityVisualizer": lambda writer, data, config: ImageCenteringDensityVisualizer(writer, data),
     "TwoDimensionalNonSquareVisualizer": lambda writer, data, config: TwoDimensionalNonSquareVisualizer(
         writer, data, log_prob_low=config.get("vis_log_prob_min"),
         log_prob_high=config.get("vis_log_prob_max"), dataset=config["dataset"]),
@@ -92,19 +95,17 @@ def _checked(config, keeps, write_folder=None, x_shape=None):
     if name == "DummyDensityVisualizer":
         return name
     draws = keeps or (write_folder is not None and name != "ImageDensityVisualizer")
-    if name in _LATER:
-        if draws:
-            raise NotImplementedError(
-                f"`{name}', the visualiser of `{config['dataset']}' for this config, waits for a "
-                "later slice of the port (ROADMAP module 9); pass --nosave"
-            )
-        return "DummyDensityVisualizer"
-    if draws and importlib.util.find_spec("matplotlib") is None:
-        raise ImportError(
-            f"`{name}', the visualiser of `{config['dataset']}', draws with matplotlib, which "
-            "does not import here; a run dir of this dataset needs it (pass --nosave)"
-        )
+    if draws:
+        require_matplotlib(f"`{name}', the visualiser of `{config['dataset']}',",
+                           "a run dir of this dataset needs it (pass --nosave)")
     return name
+
+
+def require_matplotlib(what, needs):
+    """Raise, naming ``what`` draws and what ``needs`` it, unless matplotlib
+    imports here."""
+    if importlib.util.find_spec("matplotlib") is None:
+        raise ImportError(f"{what} draws with matplotlib, which does not import here; {needs}")
 
 
 def check_visualizer(config, write_folder=None):
@@ -126,9 +127,12 @@ __all__ = [
     "check_visualizer",
     "get_visualizer",
     "reference_visualizer",
+    "require_matplotlib",
     "DummyDensityVisualizer",
     "HighDimensionalNonSquareVisualizer",
+    "ImageCenteringDensityVisualizer",
     "ImageDensityVisualizer",
+    "ImageMetricDensityVisualizer",
     "ThreeDimensionalNonSquareVisualizer",
     "TwoDimensionalDensityVisualizer",
     "TwoDimensionalNonSquareVisualizer",

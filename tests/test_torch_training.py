@@ -117,9 +117,11 @@ def test_get_loaders_matches_with_dataset_cap():
     assert ours[0].num_examples == 500
 
 
-_UNPORTED = [
+_PORTED = [
     ({"dataset": "mnist", "test_metric": True}, "dataset-mnist-test_metric-True"),
     ({"dataset": "mnist", "test_center": True}, "dataset-mnist-test_center-True"),
+]
+_UNPORTED = [
     ({"checkpoint_backend": "orbax"}, "checkpoint_backend-orbax"),
     ({"m_flow": True}, "m_flow-True"),
     ({"lr_schedule": "cosine"}, "lr_schedule-cosine"),
@@ -132,15 +134,22 @@ _UNPORTED = [
 @pytest.mark.parametrize("overrides", [o for o, _ in _UNPORTED], ids=[i for _, i in _UNPORTED])
 def test_unported_config_raises(overrides):
     """The flagship's published defaults pass (a run dir, early stopping,
-    FID), and so do mnist's. Still refused: mnist's metric and centering
-    analyses (module 9) into a run dir, the orbax checkpoint backend, and
-    the rest."""
+    FID), and so do mnist's. Still refused: the orbax checkpoint backend,
+    and the rest."""
     config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)
     check_supported({**config, "dataset": "mnist"})
     with pytest.raises(NotImplementedError, match="later slice|JAX package's backend"):
         check_supported({**config, **overrides})
+
+
+@pytest.mark.parametrize("overrides", [o for o, _ in _PORTED], ids=[i for _, i in _PORTED])
+def test_ported_config_passes(overrides):
+    """mnist's metric and centering analyses into a run dir (matplotlib
+    imports here)."""
+    config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
+    check_supported({**config, **overrides})
 
 
 def test_mnist_published_defaults_pass():

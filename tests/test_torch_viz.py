@@ -3,10 +3,9 @@
 grid drawn into a run dir as the same figure; the 2-D density, 2-D and 3-D
 non-square visualisers drawing the same arrays as the JAX package's on the
 same weights (every matplotlib call recorded on both sides), with their
-figures in the run dir and the folder; a refusal, naming ROADMAP module 9,
-wherever the JAX package would draw with the image metric or centering
-analysis; and the run-dir refusal, by name, where matplotlib does not
-import.
+figures in the run dir and the folder; the image metric and centering
+analyses given wherever the JAX package's would draw; and the run-dir
+refusal, by name, where matplotlib does not import.
 
 TensorBoard is blocked (importing it pulls in TensorFlow where that is
 installed)."""
@@ -38,8 +37,11 @@ CASES = {
     "3d-non-square": ("sphere", "non-square", {"latent_dimension": 2}, (3,)),
     "4d-non-square": ("sphere", "non-square", {"latent_dimension": 2}, (4,)),
 }
-MISSING = ["mnist-metric", "mnist-input-images", "cifar10-center"]
+IMAGE_ANALYSES = ["mnist-metric", "mnist-input-images", "cifar10-center"]
 PORTED = {
+    "mnist-metric": "ImageMetricDensityVisualizer",
+    "mnist-input-images": "ImageMetricDensityVisualizer",
+    "cifar10-center": "ImageCenteringDensityVisualizer",
     "2d-non-square": "TwoDimensionalNonSquareVisualizer",
     "2d-density": "TwoDimensionalDensityVisualizer",
     "3d-non-square": "ThreeDimensionalNonSquareVisualizer",
@@ -66,22 +68,6 @@ def test_choice_matches_cmf_tpu(case):
     assert viz.reference_visualizer(config, x_shape) == want
 
 
-@pytest.mark.parametrize("case", MISSING)
-def test_missing_visualisers_raise_naming_module_9(case, tmp_path):
-    """Into a writer that keeps it, or with a folder to write to, the
-    missing visualiser raises; into a ``DummyWriter`` with no folder the JAX
-    package's visualiser keeps nothing, and the port gives the dummy."""
-    config, x_shape = _config(case)
-    name = viz.reference_visualizer(config, x_shape)
-    writer = Writer(str(tmp_path), make_subdir=False, tee=False)
-    with pytest.raises(NotImplementedError, match=f"{name}.*module 9"):
-        viz.get_visualizer(config, writer)
-    with pytest.raises(NotImplementedError, match="module 9"):
-        viz.get_visualizer(config, DummyWriter(), write_folder=str(tmp_path))
-    dummy = viz.get_visualizer(config, DummyWriter())
-    assert isinstance(dummy, viz.DummyDensityVisualizer)
-
-
 @pytest.mark.parametrize("case", sorted(PORTED))
 def test_ported_visualisers_are_given_wherever_they_draw(case, tmp_path):
     """Into a writer that keeps it, into a folder, and into a ``DummyWriter``
@@ -95,10 +81,17 @@ def test_ported_visualisers_are_given_wherever_they_draw(case, tmp_path):
     visualizer.visualize(None, 1)  # keeps nothing: touches no density
 
 
-@pytest.mark.parametrize("case", ["mnist-metric", "mnist-input-images", "cifar10-center"])
-def test_check_supported_refuses_a_run_dir_of_a_missing_visualiser(case):
+@pytest.mark.parametrize("case", IMAGE_ANALYSES)
+def test_check_supported_takes_a_run_dir_of_an_image_analysis_where_matplotlib_imports(case, monkeypatch):
+    """Its run dir passes where matplotlib imports; where it does not, it is
+    refused naming the visualiser and matplotlib, before any work, and
+    ``--nosave`` passes."""
     config, _ = _config(case)
-    with pytest.raises(NotImplementedError, match="module 9"):
+    check_supported(config)
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "matplotlib" else real(name, *a))
+    with pytest.raises(ImportError, match=f"{PORTED[case]}.*matplotlib"):
         check_supported(config)
     check_supported({**config, "nosave": True})
 

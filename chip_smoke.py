@@ -10,7 +10,10 @@ Phases, each of which fails the run on its own failure:
                   process per source, all at once; each kernel's ptxas line
                   and the Gram/log-det kernels' launch geometry.
 3. kernels     -- each kernel against its plain PyTorch version on the card,
-                  at the main-path shapes and edge shapes; a rank-deficient
+                  at the main-path shapes and edge shapes (the Gram/log-det
+                  kernels also at the other tabular defaults' shapes, each
+                  timed: power, gas, gas --baseline, hepmass, bsds300); a
+                  rank-deficient
                   input must give a non-finite log-det; the Gram/log-det
                   forward on a batch that mixes rank-2 Jacobians with
                   full-rank ones must give non-finite log-dets on the same
@@ -126,6 +129,28 @@ Phases, each of which fails the run on its own failure:
                   ``best_valid``; ``--print-model`` on the card equal to
                   the CPU's; ``--profile-dir`` on miniboone for 3 epochs, its
                   trace naming both Gram/log-det kernels.
+17. mflow      -- the M-flow baseline: miniboone --baseline at full width
+                  with the published defaults, the warm-up cut to 1 -> 2, 6
+                  epochs of 2 batches into a run dir (epoch 1 skipped, the
+                  two optimizers on alternate epochs, FID validation at
+                  epochs 4 and 6, one graph a key, no Gram/log-det launch);
+                  10 captured steps of each key against 10 eager ones, each
+                  leaving the other group's parameters and optimizer state
+                  bit-equal, no Gram/log-det launch; ms a step and idle
+                  share of each key; one step of each key on the card
+                  against the CPU; the run dir resumed to epoch 8 (both
+                  optimizers' states bit-equal to `latest'); mnist
+                  --baseline with the published defaults, cut the same
+                  way under --nosave (FID validation at 4 and 6 through
+                  the coupler kernel, then sample(50): 10 coupler
+                  launches, against the conv route); sphere
+                  --baseline (forward launches = evaluation batches, no
+                  backward); the optimizer options (adamax, sgd, cosine,
+                  clipping that acts, weight decay, and all at once under
+                  M-flow): 5 captured steps a key against eager ones, the
+                  ms of a captured step beside Adam's, one update on the
+                  card against the CPU's from the same state and gradients,
+                  the rate read back from the device against the formula.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -147,6 +172,9 @@ MAIN_SHAPE = (21, 400, 43)
 # of shared memory); B=1; and a B that is no multiple of the backward's
 # warps a block (a tail warp).
 EDGE_SHAPES = [(1, 400, 43), (32, 400, 128), (21, 1, 43), (21, 401, 43)]
+# The other tabular defaults' shapes (d, train batch, D): power, gas, gas
+# under --baseline (d=4), hepmass, bsds300; each checked and timed.
+TABULAR_SHAPES = [(2, 5000, 6), (2, 2500, 8), (4, 2500, 8), (10, 750, 21), (30, 250, 63)]
 # The 2-D zoo's shapes (d, B, D): a 1-D latent of 2-D data, the sphere
 # (d=2, D=3) at the train and valid batch and at its test split's one batch
 # of 5000, the CMF-vs-RNF battery's d=6, D=6, and a tail warp. The two
@@ -308,6 +336,51 @@ TRAIN_MNIST_ARGV = [
     "--config", "max_dataset_size=500", "--config", "seed=0",
 ]
 
+# The M-flow baseline (--baseline) on miniboone at full width with the
+# published defaults, cut to 6 epochs of 2 batches and the warm-up to start
+# 1, end 2: engine epoch 1 is skipped (the likelihood is not in yet), then
+# reconstruction (optimizer 0) on even and the likelihood (optimizer 1) on
+# odd epochs; FID validation from epoch 4 every second epoch; a run dir;
+# then resumed to epoch 8.
+MFLOW_ARGV = [
+    "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--baseline",
+    "--config", "max_epochs=6", "--config", "max_dataset_size=800", "--config", "seed=0",
+    "--config", "likelihood_warmup_start=1", "--config", "likelihood_warmup_end=2",
+]
+MFLOW_RESUME_EPOCHS = 8
+# Captured against eager: this many steps of each flag key.
+MFLOW_STEPS = 10
+# mnist --baseline with the published defaults under --nosave, cut as the
+# miniboone run is: 100 images (2 steps of 50), the warm-up 1 -> 2, 6
+# epochs, so FID validation (10,000 samples, proxy features) at epochs 4
+# and 6 and the test at 1; then sample(50) through the coupler kernel.
+MFLOW_MNIST_ARGV = [
+    "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--baseline", "--nosave",
+    "--config", "max_dataset_size=100", "--config", "likelihood_warmup_start=1",
+    "--config", "likelihood_warmup_end=2", "--config", "max_epochs=6", "--config", "seed=0",
+]
+MFLOW_SAMPLE_BATCH = 50
+# The README's sphere under --baseline: validation (-elbo through the exact
+# log-det) every second epoch, the test after epoch 1.
+MFLOW_SPHERE_ARGV = [
+    "--model", "non-square", "--dataset", "sphere", "--baseline", "--nosave",
+    "--config", "max_epochs=4", "--config", "seed=0",
+]
+# The optimizer options on miniboone at full width (TRAIN_ARGV's model and
+# data, the likelihood on): each alone, and all at once under M-flow.
+# OPTION_STEPS captured steps a key against eager ones; the clip's maximum
+# is a quarter of the first step's measured gradient norm, so that it acts.
+OPTION_STEPS = 5
+OPTION_CONFIG = {"likelihood_warmup": False, "max_dataset_size": 4000, "seed": 0, "max_epochs": 2,
+                 "early_stopping": False, "use_fid": False, "synthetic_data": True, "nosave": True}
+# The optimizer's update on the card against the same update on the CPU from
+# the same state and gradients: elementwise fp32 (a sqrt, a pow, a cos, the
+# group norm summed in another order), so a few rounding units. Each state
+# tensor: max |diff| / max |ref|. The parameters: the same over each
+# parameter tensor, where one rounding unit of p is 1.2e-7 of it.
+OPT_TOL = 1e-5
+OPT_PARAM_TOL = 1e-6
+
 
 def rel_err(got, ref):
     """max |got - ref| / max(1, max |ref|)."""
@@ -391,7 +464,7 @@ def phase_build():
     for name in KERNEL_SOURCES:
         for line in ptxas_report(cuda_build.BUILD_LOGS.get(name, "")):
             print(f"[build]   {name}: {line}")
-    for d, b, big_d in [MAIN_SHAPE] + EDGE_SHAPES:
+    for d, b, big_d in [MAIN_SHAPE] + EDGE_SHAPES + TABULAR_SHAPES:
         warps, fwd_smem, bwd_smem = gram_logdet_geometry(d, big_d)
         blocks = -(-b // warps)
         print(f"[build]   gram_logdet: gram_logdet_fwd_kernel at d,B,D={(d, b, big_d)}: {warps} warps a block, "
@@ -475,7 +548,7 @@ def phase_kernels():
         return rel_err(jk.grad, jp.grad), float((jk.grad - jp.grad).abs().max())
 
     results = {}
-    for shape in [MAIN_SHAPE] + EDGE_SHAPES:
+    for shape in [MAIN_SHAPE] + EDGE_SHAPES + TABULAR_SHAPES:
         j = cols(*shape)
         f_rel, f_abs = fwd_errs(j)
         b_rel, b_abs = bwd_errs(j)
@@ -484,6 +557,12 @@ def phase_kernels():
         assert f_rel <= FWD_TOL, f"forward kernel disagrees with its plain version at {shape}"
         assert b_rel <= BWD_TOL, f"backward kernel disagrees with autograd through the plain version at {shape}"
         results[shape] = (f_abs, b_abs)
+        if shape in TABULAR_SHAPES:
+            d, b, _ = shape
+            _, _, l_k = gl.gram_logdet_fwd_cuda(j)
+            gbar = torch.randn((b, d, d), device=dev, generator=gen)
+            ldbar = torch.randn((b,), device=dev, generator=gen)
+            gram_logdet_times(j, l_k, gbar, ldbar, "kernels")
 
     # The backward kernel on its own against the plain dJ formula, with a
     # nonzero Ḡ and ḡ_ld.
@@ -843,7 +922,10 @@ def card_vs_cpu(setup, x, flags, tag, loss_tol, grad_tol, **draws):
         t0 = time.perf_counter()
         loss = elbo_loss(model, x.to(dev), flags, **{k: v.to(dev) for k, v in draws.items()})
         loss.backward()
-        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        # A parameter the loss does not reach (the other M-flow group) has
+        # no gradient: zero, as jax.grad gives it.
+        grads = {n: torch.zeros(p.shape) if p.grad is None else p.grad.detach().cpu()
+                 for n, p in model.named_parameters()}
         results.append((loss.item(), grads, time.perf_counter() - t0))
     (loss_g, grads_g, s_g), (loss_c, grads_c, s_c) = results
     loss_err = abs(loss_g - loss_c) / max(1.0, abs(loss_c))
@@ -917,8 +999,8 @@ def phase_train():
 
 
 def train_state(trainer):
-    """The parameters and every optimizer state tensor, cloned."""
-    state = [v for p in trainer.params for v in trainer.optimizer.state[p].values()]
+    """The parameters and every optimizer's state tensors, cloned."""
+    state = [v for opt in trainer.optimizers for v in opt.tensors()]
     return [t.detach().clone() for t in list(trainer.params) + state]
 
 
@@ -2018,6 +2100,301 @@ def phase_metric_mnist(setup, default_run_dir, root, smi):
     print(f"[metric-mnist] the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+def _group_tensors(optimizer):
+    return optimizer.params + optimizer.tensors()
+
+
+def mflow_steps(captured, eager, epochs, n, tag):
+    """``n`` captured steps of each flag key (one a listed engine epoch)
+    against as many eager steps of another trainer from the same weights,
+    each captured step leaving the other group's parameters and optimizer
+    state bit-equal. Returns {key: (flags, x)}."""
+    import torch
+
+    batches = list(captured.train_loader)
+    out_c, out_e, keys = [], [], {}
+    untouched = True
+    for epoch in epochs:
+        flags = captured.objective.for_epoch(epoch)
+        other = captured.optimizers[1 - flags["optimizer_index"]]
+        for i in range(n):
+            x = batches[i % len(batches)]
+            before = [t.clone() for t in _group_tensors(other)]
+            out_c.append(torch.stack(captured.step(x, flags)))
+            untouched &= all(torch.equal(a, b) for a, b in zip(before, _group_tensors(other)))
+            out_e.append(torch.stack(eager.eager_step(x, flags)))
+        keys[flags["optimizer_index"]] = (flags, batches[0])
+    out_c, out_e = torch.stack(out_c), torch.stack(out_e)
+    loss_rel = float(((out_c - out_e).abs() / out_e.abs()).max())
+    state_rel = max_rel_diff(train_state(captured), train_state(eager))
+    graphs = len(captured_steps(captured))
+    print(f"[{tag}] {n} captured vs {n} eager steps of each of {len(epochs)} keys: max rel diff of the "
+          f"losses and grad norms {loss_rel:.3e}, of the parameters and both optimizers' state "
+          f"{state_rel:.3e} (tol {CAPTURED_TOL:g}); the other group bit-equal after every step "
+          f"{untouched}; {graphs} graph(s)")
+    assert captured.captured and graphs == len(epochs), f"{tag}: not one graph a key"
+    assert untouched, f"{tag}: a step moved the other group's parameters or optimizer state"
+    assert loss_rel <= CAPTURED_TOL and state_rel <= CAPTURED_TOL, f"{tag}: captured steps drift from eager"
+    return keys
+
+
+def option_trainers(overrides, baseline=False):
+    """Two trainers (for the captured and the eager route) of miniboone at
+    full width under OPTION_CONFIG and ``overrides``, through the port's
+    experiment set-up, from the same weights."""
+    from cmf_tpu_torch.config import expand_grid, get_config
+    from cmf_tpu_torch.training import experiment
+
+    config = expand_grid(get_config("miniboone", "non-square", use_baseline=baseline))[0]
+    config = {**config, "model": "non-square", "dataset": "miniboone", **OPTION_CONFIG, **overrides}
+    return [experiment.setup_experiment(config, write_to_disk=False)["trainer"] for _ in range(2)]
+
+
+def update_card_vs_cpu(trainer, x, flags, tag):
+    """The epoch's optimizer's update on the card against the same update
+    on the CPU, from the same parameters, state and gradients. Returns the
+    group's gradient norm."""
+    import torch
+    from cmf_tpu_torch.training.optim import GroupOptimizer
+
+    opt = trainer.optimizers[flags["optimizer_index"]]
+    before = [p.detach().cpu().clone() for p in opt.params]
+    params = [p.clone().requires_grad_(True) for p in before]
+    cpu = GroupOptimizer(params, opt.lr, opt.rule, opt.schedule_steps, opt.max_grad_norm, opt.weight_decay)
+    for src, dst in zip(opt.tensors(), cpu.tensors()):
+        dst.copy_(src.cpu())
+    trainer.eager_step(x, flags)
+    for p, q in zip(params, opt.params):
+        p.grad = q.grad.detach().cpu()
+    cpu.step()
+    group_norm = float(torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in params])))
+    after = [p.detach().cpu() for p in opt.params]
+    param_err = max_rel_diff(after, [p.detach() for p in params])
+    moved = max_rel_diff(after, before)
+    state = cpu.tensors()[1:]
+    state_err = max_rel_diff([t.cpu() for t in opt.tensors()[1:]], state) if state else 0.0
+    clip = "" if opt.max_grad_norm is None else (
+        f"; the group's gradient norm {group_norm:.6g} vs max {opt.max_grad_norm:.6g}: the clip "
+        f"{'acts' if group_norm >= opt.max_grad_norm else 'is idle'}")
+    print(f"[{tag}] one update on the card vs the CPU from the same state and gradients (count "
+          f"{int(opt.count)}, {len(opt.params)} tensors): parameters moved {moved:.3e} of their largest, "
+          f"max err {param_err:.3e} (tol {OPT_PARAM_TOL:g}); state max err {state_err:.3e} (tol {OPT_TOL:g}){clip}")
+    assert int(opt.count) == int(cpu.count), f"{tag}: the counts differ"
+    assert param_err <= OPT_PARAM_TOL and state_err <= OPT_TOL, f"{tag}: the update on the card disagrees with the CPU"
+    return group_norm
+
+
+def phase_mflow(smi, root):
+    """The M-flow baseline on the card: miniboone --baseline's default run,
+    its captured steps, a card step of each key against the CPU, its resume;
+    mnist --baseline's steps and samples; sphere --baseline's evaluation
+    through the forward kernel; the optimizer options."""
+    import torch
+    from cmf_tpu_torch.densities import ManifoldFlowHeadDensity, nonsquare
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.training import experiment
+    from cmf_tpu_torch.training.checkpoint import make_checkpoint
+
+    phase_t0 = time.perf_counter()
+    streams = sys.stdout, sys.stderr
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        nonsquare.reset_logdet_fallbacks()
+        t0 = time.perf_counter()
+        (setup,) = cli_main(MFLOW_ARGV + ["--logdir-root", root])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _restore_streams(streams)
+        fwd, bwd = gl.launch_counts()
+    finally:
+        _restore_streams(streams)
+    trainer = setup["trainer"]
+    run_dir = setup["writer"].logdir
+    history = trainer.history
+    counts = [int(o.count) for o in trainer.optimizers]
+    sizes = [sum(p.numel() for p in o.params) for o in trainer.optimizers]
+    valid = _scalar_steps(run_dir, "valid/loss")
+    graphs = captured_steps(trainer)
+    epochs = sorted({h[0] for h in history})
+    print(f"[mflow] miniboone --baseline: {type(setup['density']).__name__}; {trainer.epoch} epochs, trained "
+          f"{epochs}, {len(history)} steps in {seconds:.4f} s ({smi}); optimizers' counts {counts} over "
+          f"{sizes} parameters; {len(graphs)} graph(s); Gram/log-det launches (fwd, bwd) {fwd}, {bwd} "
+          f"(counted on the device, under replay); valid/loss (FID) at epochs {sorted(valid)}: "
+          f"{', '.join(f'{v:.6g}' for _, v in sorted(valid.items()))}; losses {history[0][1]:.6g} -> "
+          f"{history[-1][1]:.6g}")
+    assert isinstance(setup["density"], ManifoldFlowHeadDensity), "--baseline did not build the M-flow head"
+    assert all(math.isfinite(h[1]) for h in history), "non-finite loss in the M-flow run"
+    assert epochs == [2, 3, 4, 5, 6], "the M-flow run did not skip epoch 1 alone"
+    assert counts == [6, 4], "the two optimizers did not step on alternate epochs"
+    assert trainer.captured and len(graphs) == 2, "the M-flow run did not train through one graph a key"
+    assert (fwd, bwd) == (0, 0), "a Gram/log-det kernel launched in M-flow training"
+    assert sorted(valid) == [4, 6] and all(math.isfinite(v) for v in valid.values()), \
+        "valid/loss (FID) not at epochs 4 and 6"
+
+    # Captured against eager, the other group untouched, no log-det.
+    argv = MFLOW_ARGV + ["--nosave"]
+    captured, eager = fresh_setup(argv)["trainer"], fresh_setup(argv)["trainer"]
+    gl.reset_launch_counts()
+    keys = mflow_steps(captured, eager, [2, 3], MFLOW_STEPS, "mflow")
+    torch.cuda.synchronize()
+    launches = gl.launch_counts()
+    print(f"[mflow] Gram/log-det launches (fwd, bwd) over those {4 * MFLOW_STEPS} steps: {launches}")
+    assert launches == (0, 0), "a Gram/log-det kernel launched in an M-flow step"
+    adam_ms = {}
+    for index, (flags, x) in sorted(keys.items()):
+        name = ("reconstruction", "likelihood")[index]
+        step_time(captured.step, x, flags, 20, "mflow", f"{name} key, captured: ")
+        replay_ms = adam_ms[("m-flow", index)] = cuda_ms(lambda: captured.step(x, flags), iters=50, warmup=3)
+        print(f"[mflow] {smi}: {name} key, captured: {replay_ms:.4f} ms per step back to back (CUDA events)")
+        step_time(captured.eager_step, x, flags, 10, "mflow", f"{name} key, eager: ")
+        profile_steps(captured.step, x, flags, 10, "mflow", f"{name} key, captured: ")
+        profile_steps(captured.eager_step, x, flags, 5, "mflow", f"{name} key, eager: ")
+        card_vs_cpu(fresh_setup(argv), x, flags, f"mflow {name}", STEP_LOSS_TOL, STEP_GRAD_TOL)
+
+    # Resumed: both optimizers' states bit-equal to `latest', then on to epoch 8.
+    resumed_dir = run_dir + "_resumed"
+    shutil.copytree(run_dir, resumed_dir)
+    with open(os.path.join(resumed_dir, "config.json")) as f:
+        config = json.load(f)
+    config["max_epochs"] = MFLOW_RESUME_EPOCHS
+    with open(os.path.join(resumed_dir, "config.json"), "w") as f:
+        json.dump(config, f)
+    saved = torch.load(os.path.join(resumed_dir, "checkpoints", "latest.pt"), weights_only=True)
+    try:
+        gl.reset_launch_counts()
+        setup_r = experiment.setup_experiment(config, resume_dir=resumed_dir)
+        trainer_r = setup_r["trainer"]
+        loaded = make_checkpoint(trainer_r)
+        groups = sorted({k.split("/")[0] for k in saved["opt_states"]})
+        same = all(torch.equal(loaded[s][k], saved[s][k]) for s in ("params", "model_state", "opt_states")
+                   for k in saved[s])
+        trainer_r.train()
+        torch.cuda.synchronize()
+    finally:
+        _restore_streams(streams)
+    history_r = trainer_r.history
+    print(f"[mflow] resumed from `{trainer_r.restored_from}' after epoch {saved['epoch']}: {len(saved['opt_states'])} "
+          f"optimizer state tensors of groups {groups} and every parameter bit-equal {same}; then epochs "
+          f"{sorted({h[0] for h in history_r})}, counts {[int(o.count) for o in trainer_r.optimizers]}, "
+          f"{len(captured_steps(trainer_r))} graph(s), Gram/log-det launches {gl.launch_counts()}")
+    assert trainer_r.restored_from == "latest" and groups == ["0", "1"] and same, \
+        "the resumed M-flow state differs from `latest'"
+    assert [h[0] for h in history_r] == [7, 7, 8, 8] and len(captured_steps(trainer_r)) == 2
+    assert [int(o.count) for o in trainer_r.optimizers] == [8, 6] and gl.launch_counts() == (0, 0)
+
+    # mnist --baseline: eager steps (the dequantization noise), FID passes
+    # through the coupler kernel, then samples.
+    with _Recorded() as rec:
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        (mnist,) = cli_main(MFLOW_MNIST_ARGV)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    mt = mnist["trainer"]
+    run_launches = cs.LAUNCHES
+    valid, test = rec.steps("valid/loss"), rec.steps("test/fid")
+    fid_passes = mt.timings["fid"][0]
+    gen = torch.Generator(device=mnist["device"]).manual_seed(3)
+    samples = mnist["density"].sample(MFLOW_SAMPLE_BATCH, generator=gen)
+    torch.cuda.synchronize()
+    sample_launches = cs.LAUNCHES - run_launches
+    latent = mnist_head(mnist["density"]).latent_dimension
+    noise = torch.randn((MFLOW_SAMPLE_BATCH, latent), generator=gen, device=mnist["device"])
+    got = mnist["density"].fixed_sample(noise)
+    with torch.no_grad():
+        ref = mnist["density"]._fixed_sample(noise)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"[mflow] mnist --baseline: {type(mnist_head(mnist['density'])).__name__}, route "
+          f"{'captured' if mt.captured else 'eager'}, epochs {sorted({h[0] for h in mt.history})}, "
+          f"{len(mt.history)} steps in {seconds:.4f} s ({smi}), counts {[int(o.count) for o in mt.optimizers]}; "
+          f"valid/loss (FID) at {sorted(valid)}: {', '.join(f'{v:.6g}' for _, v in sorted(valid.items()))}; "
+          f"test/fid at {sorted(test)}; {run_launches} coupler launches in {fid_passes} FID passes; "
+          f"sample({MFLOW_SAMPLE_BATCH}) {tuple(samples.shape)} with {sample_launches} coupler launches; "
+          f"kernel vs conv route max err / max |ref| {err:.3e} (tol {SAMPLE_TOL:g})")
+    assert all(math.isfinite(h[1]) for h in mt.history) and [int(o.count) for o in mt.optimizers] == [6, 4]
+    assert sorted({h[0] for h in mt.history}) == [2, 3, 4, 5, 6], "mnist --baseline trained other epochs"
+    assert sorted(valid) == [4, 6] and sorted(test) == [1], "mnist --baseline validated on other epochs"
+    assert all(math.isfinite(v) for v in list(valid.values()) + list(test.values())), "non-finite FID"
+    per_pass = mnist["config"]["num_fid_samples"] // mnist["config"]["test_batch_size"] * MNIST_COUPLINGS
+    assert run_launches == fid_passes * per_pass, "coupler launches != FID passes x chunks x couplings"
+    assert sample_launches == MNIST_COUPLINGS, "sample(): coupler launches != couplings"
+    assert err <= SAMPLE_TOL and bool(torch.isfinite(samples).all())
+
+    # sphere --baseline: the forward kernel in evaluation alone.
+    with _Recorded() as rec:
+        gl.reset_launch_counts()
+        (sphere,) = cli_main(MFLOW_SPHERE_ARGV)
+        torch.cuda.synchronize()
+        fwd, bwd = gl.launch_counts()
+    st = sphere["trainer"]
+    valid, test = rec.steps("valid/loss"), rec.steps("test/loss")
+    evals = len(valid) * len(st.valid_loader) + len(test) * len(st.test_loader)
+    print(f"[mflow] sphere --baseline: {len(st.history)} steps, counts {[int(o.count) for o in st.optimizers]}, "
+          f"{len(captured_steps(st))} graph(s); valid/loss at {sorted(valid)}, test/loss at {sorted(test)}; "
+          f"Gram/log-det launches (fwd, bwd) {fwd}, {bwd} ({evals} evaluation batches)")
+    assert sorted(valid) == [2, 4] and sorted(test) == [1], "sphere --baseline evaluated on other epochs"
+    assert all(math.isfinite(v) for v in list(valid.values()) + list(test.values()))
+    assert fwd == evals and bwd == 0, "Gram/log-det launches != evaluation batches (fwd), 0 (bwd)"
+    assert len(captured_steps(st)) == 2
+
+    # The optimizer options, each alone on CMF and all at once under M-flow.
+    probe, _ = option_trainers({})
+    x0 = next(iter(probe.train_loader))
+    flags0 = probe.objective.for_epoch(1)
+    first_norm = float(probe.eager_step(x0, flags0)[1])
+    clip = 0.25 * first_norm
+    adam_ms[("cmf", 0)] = cuda_ms(lambda: probe.step(x0, flags0), iters=20, warmup=3)
+    options = [("adamax", {"opt": "adamax"}, False), ("sgd", {"opt": "sgd"}, False),
+               ("cosine", {"lr_schedule": "cosine"}, False), ("clip", {"max_grad_norm": clip}, False),
+               ("weight-decay", {"weight_decay": 0.1}, False),
+               ("m-flow-all", {"opt": "adamax", "lr_schedule": "cosine", "max_grad_norm": clip,
+                               "weight_decay": 0.1}, True)]
+    print(f"[mflow] options: the first step's gradient norm {first_norm:.6g}, so max_grad_norm {clip:.6g}")
+    for name, overrides, baseline in options:
+        tag = f"mflow {name}"
+        captured, eager = option_trainers(overrides, baseline)
+        epochs = [1, 2] if baseline else [1]
+        if baseline:
+            keys = mflow_steps(captured, eager, epochs, OPTION_STEPS, tag)
+        else:
+            flags = captured.objective.for_epoch(1)
+            batches = list(captured.train_loader)
+            out_c = torch.stack([torch.stack(captured.step(batches[i % len(batches)], flags))
+                                 for i in range(OPTION_STEPS)])
+            out_e = torch.stack([torch.stack(eager.eager_step(batches[i % len(batches)], flags))
+                                 for i in range(OPTION_STEPS)])
+            loss_rel = float(((out_c - out_e).abs() / out_e.abs()).max())
+            state_rel = max_rel_diff(train_state(captured), train_state(eager))
+            print(f"[{tag}] {OPTION_STEPS} captured vs eager steps: max rel diff of the losses and grad "
+                  f"norms {loss_rel:.3e}, of the parameters and optimizer state {state_rel:.3e} "
+                  f"(tol {CAPTURED_TOL:g}); {len(captured_steps(captured))} graph(s)")
+            assert captured.captured and len(captured_steps(captured)) == 1, f"{tag}: no graph"
+            assert loss_rel <= CAPTURED_TOL and state_rel <= CAPTURED_TOL, f"{tag}: captured drifts from eager"
+            keys = {0: (flags, batches[0])}
+        for index, opt in enumerate(captured.optimizers):
+            rate = float(opt.rate(opt.count))
+            host = opt.host_rate(int(opt.count))
+            rel = abs(rate - host) / opt.lr
+            print(f"[{tag}] optimizer {index}: count {int(opt.count)}, rate read from the device {rate:.9g} vs "
+                  f"the formula {host:.9g}, diff over lr {rel:.3e}" + (f" (lr {opt.lr:g}, T {opt.schedule_steps})"
+                                                                      if opt.schedule_steps else ""))
+            assert rel <= 1e-6, f"{tag}: the rate on the device disagrees with the formula"
+            if opt.schedule_steps:
+                assert rate < opt.lr, f"{tag}: the cosine rate did not move"
+        for index, (flags, x) in sorted(keys.items()):
+            ms = cuda_ms(lambda: captured.step(x, flags), iters=20, warmup=2)
+            adam = adam_ms[("m-flow" if baseline else "cmf", index)]
+            print(f"[{tag}] {smi}: key {index}, captured: {ms:.4f} ms per step back to back (CUDA events); "
+                  f"with Adam alone {adam:.4f} ms")
+            norm = update_card_vs_cpu(eager, x, flags, tag)
+            if name == "clip":
+                assert norm >= clip, "the clip did not act"
+    print(f"[mflow] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -2045,6 +2422,7 @@ def main():
         counts["COUPLER_LAUNCHES"] = coupler_launches
         phase_ood(mnist_setup, smi)
         phase_metric_mnist(setup, default_run_dir, root, smi)
+        phase_mflow(smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

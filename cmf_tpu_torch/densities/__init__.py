@@ -1,7 +1,7 @@
 from .base import Density
 from .exact import BijectionDensity
 from .gaussian import DiagonalGaussianDensity, diagonal_gaussian_log_prob
-from .nonsquare import NonSquareHeadDensity, NonSquareTailDensity
+from .nonsquare import ManifoldFlowHeadDensity, NonSquareHeadDensity, NonSquareTailDensity
 from .split import SplitDensity
 from .wrapper import DequantizationDensity
 
@@ -11,6 +11,7 @@ __all__ = [
     "DequantizationDensity",
     "DiagonalGaussianDensity",
     "diagonal_gaussian_log_prob",
+    "ManifoldFlowHeadDensity",
     "NonSquareHeadDensity",
     "NonSquareTailDensity",
     "SplitDensity",

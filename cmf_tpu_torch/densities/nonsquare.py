@@ -18,6 +18,10 @@ torch).
 * CMF metric regularisers (non_square.py:87-99): L1 of diag(JᵀJ) (g_kk,
   Hutchinson-estimated on the stochastic path) and of its off-diagonal
   entries (g_ij, exact path only).
+* The M-flow baseline head (``ManifoldFlowHeadDensity``,
+  nonsquare.py:429-465): a training step takes no log-det at all, only the
+  latent prior's elbo on the detached latent and the reconstruction term;
+  evaluation and ``ood`` take the exact log-det as above.
 
 Waiting for a later slice, and raising when asked for: the exact-Gram
 Hutchinson solver (``hutchinson_solver="gram"``, which ``"auto"`` picks on
@@ -308,6 +312,39 @@ class NonSquareHeadDensity(Density):
         # Unbiased Hutchinson estimate of diag(JᵀJ) for the g_kk regulariser.
         diag_est = (eps * jtj_eps).mean(dim=-1)
         return surrogate, recon_flat, diag_est
+
+
+class ManifoldFlowHeadDensity(NonSquareHeadDensity):
+    """The M-flow baseline head (nonsquare.py:429-465). With ``train`` and
+    not ``ood``: ``likelihood_wt · low_dim_elbo − regularization_param ·
+    Σ (decode(z) − x)²`` with z the tail's kept coordinates, the likelihood
+    term 0 under ``skip_likelihood`` and the reconstruction term 0 without
+    ``add_reconstruction``; no log-det and no metric term. The tail detaches
+    z before its prior (``detach_before_prior``), so the likelihood term
+    trains the latent prior alone. Otherwise the parent's elbo. The JAX head
+    decodes z even without the reconstruction term and XLA drops the
+    unused result; here that decode is skipped."""
+
+    @property
+    def step_capturable(self):
+        """A training step draws no probes and reads nothing on the host,
+        whatever ``log_jacobian_method`` says: as capturable as the
+        densities it holds."""
+        return Density.step_capturable.fget(self)
+
+    def elbo(self, x, train=False, ood=False, likelihood_wt=1.0, add_reconstruction=True,
+             skip_likelihood=False, **kw):
+        if not train or ood:
+            return super().elbo(x, train=train, ood=ood, likelihood_wt=likelihood_wt,
+                                add_reconstruction=add_reconstruction, skip_likelihood=skip_likelihood, **kw)
+        prior_info = self.prior.elbo(x)
+        batch = x.shape[0]
+        likelihood_term = 0.0 if skip_likelihood else prior_info["low_dim_elbo"]
+        recon_loss = 0.0
+        if add_reconstruction:
+            recon_flat = self._decode_flat(prior_info["low_dim_x"])
+            recon_loss = ((recon_flat - x.reshape(batch, -1)) ** 2).sum(dim=-1)
+        return {"elbo": likelihood_wt * likelihood_term - self.regularization_param * recon_loss}
 
 
 class NonSquareTailDensity(Density):

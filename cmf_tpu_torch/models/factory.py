@@ -3,8 +3,8 @@
 multiscale image non-square schemas use).
 
 Covered: ``dequantization``, ``split``, ``non-square-head`` (exact and
-Hutchinson + CG log-det), ``non-square-base``, ``affine``, ``flatten``, ``flip``,
-``rand-channel-perm``, ``squeeze``, ``logit``, ``scalar-mult``,
+Hutchinson + CG log-det; the M-flow head with ``m_flow``),
+``non-square-base``, ``affine``, ``flatten``, ``flip``, ``rand-channel-perm``, ``squeeze``, ``logit``, ``scalar-mult``,
 ``scalar-add``, ``acl`` with alternating-channel, checkerboard and
 split-channel masks, MLP and batchnorm-free ResNet couplers, and the
 standard Gaussian. Any other layer type, mask, net or option raises
@@ -35,6 +35,7 @@ from ..densities import (
     BijectionDensity,
     DequantizationDensity,
     DiagonalGaussianDensity,
+    ManifoldFlowHeadDensity,
     NonSquareHeadDensity,
     NonSquareTailDensity,
     SplitDensity,
@@ -77,11 +78,10 @@ def get_density_recursive(schema, x_shape, generator):
         )
 
     if ty == "non-square-head":
-        if layer_config["m_flow"]:
-            raise _later("the M-flow head (m_flow=True)")
+        head_cls = ManifoldFlowHeadDensity if layer_config["m_flow"] else NonSquareHeadDensity
         d = layer_config["latent_dimension"]
         max_cg = layer_config["max_cg_iterations"]
-        return NonSquareHeadDensity(
+        return head_cls(
             prior=get_density_recursive(schema_tail, x_shape, generator),
             regularization_param=layer_config["regularization_param"],
             log_jacobian_method=layer_config["log_jacobian_method"],

@@ -1,17 +1,19 @@
 """A trainer's checkpoint (``cmf_tpu/training/checkpoint.py`` in torch).
 
 A checkpoint holds the epoch and iteration, the density's parameters and
-buffers, Adam's state (its step count too, a device tensor where Adam is
-capturable), the early-stopping bookkeeping and the state of the trainer's
+buffers, every optimizer's state (``opt_states``, keyed
+``<group>/count`` and ``<group>/<parameter>/<moment>``: the group index
+first, so the two optimizers of an M-flow run keep their own counts and
+moments), the early-stopping bookkeeping and the state of the trainer's
 generator, which draws the FID noise. Its tensors are copied to the host in
 one packed transfer per dtype, so saving reads the card once or twice and a
 checkpoint loads on any device.
 
 Restoring copies into the tensors that exist. The trainer's CUDA graphs hold
-the addresses of the parameters, the buffers and Adam's state, and its
-non-finite freeze flattens them in a fixed order: ``load_state_dict`` of a
-module or an optimizer would put new tensors in their place, and a replay
-would then train the old ones.
+the addresses of the parameters, the buffers and the optimizers' state, and
+its non-finite freeze flattens them in a fixed order: ``load_state_dict`` of
+a module would put new tensors in their place, and a replay would then train
+the old ones.
 """
 
 import torch
@@ -36,10 +38,9 @@ def _named_tensors(trainer):
     """(section, name, tensor) for every tensor a checkpoint holds."""
     named = [("params", n, p) for n, p in trainer.density.named_parameters()]
     named += [("model_state", n, b) for n, b in trainer.density.named_buffers()]
-    for name, p in trainer.density.named_parameters():
-        for key, value in trainer.optimizer.state.get(p, {}).items():
-            if torch.is_tensor(value):
-                named.append(("opt_states", f"{name}/{key}", value))
+    param_names = {p: n for n, p in trainer.density.named_parameters()}
+    for group, optimizer in enumerate(trainer.optimizers):
+        named += [("opt_states", f"{group}/{n}", v) for n, v in optimizer.named_tensors(param_names)]
     return named
 
 

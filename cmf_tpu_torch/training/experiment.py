@@ -4,9 +4,11 @@
 Setup follows experiment.py:148-302: loaders, schema, density, objective,
 optimizer, writer, the visualiser, the validation and test closures, the FID
 function (on image data over the features of ``eval/inception.py``) and the
-trainer. Adam is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``,
-the same update as optax ``scale_by_adam`` followed by
-``scale_by_learning_rate`` (experiment.py:89-131).
+trainer. The optimizers are ``training/optim.py``'s optax chains: two under
+the M-flow split (``non_square`` and ``m_flow``), one over the
+reconstruction parameters and one over the latent prior's
+(``nonsquare_param_groups``, experiment.py:49-87), else one over every
+parameter (experiment.py:177-186).
 
 The analyses of a finished run (experiment.py:433-544): ``load_run``, the
 image metric analysis (``metric_test_plots``), the centering analysis
@@ -32,12 +34,14 @@ from ..config import get_schema
 from ..data import get_loaders
 from ..data.image import DATASET_SHAPES as IMAGE_SHAPES
 from ..data.tabular import DATASET_SHAPES as TABULAR_SHAPES
+from ..densities import BijectionDensity, DequantizationDensity, NonSquareTailDensity, SplitDensity
 from ..device import pin_fp32, resolve_device
 from ..eval.fid import get_fid_function
 from ..eval.inception import get_feature_fn
 from ..eval.metrics import metrics
 from ..models import get_density
 from .objectives import get_objective
+from .optim import make_optimizer
 from .trainer import Trainer
 from .writer import DummyWriter, Writer, check_checkpoint_backend
 
@@ -52,16 +56,6 @@ def check_supported(config, write_to_disk=True):
     """Raise for every config entry that asks for what the port lacks."""
     if not config.get("non_square", False):
         raise _later("training a square flow (ROADMAP module 8)")
-    if config.get("m_flow", False):
-        raise _later("the M-flow baseline (m_flow=True, ROADMAP module 8)")
-    if config.get("opt", "adam") != "adam":
-        raise _later(f"optimizer `{config['opt']}' (ROADMAP module 8)")
-    if config.get("lr_schedule", "none") != "none":
-        raise _later(f"lr schedule `{config['lr_schedule']}' (ROADMAP module 8)")
-    if config.get("max_grad_norm") is not None:
-        raise _later("gradient clipping (max_grad_norm, ROADMAP module 8)")
-    if config.get("weight_decay", 0.0):
-        raise _later("weight decay (ROADMAP module 8)")
     if config.get("compute_dtype", "float32") != "float32":
         raise _later(f"compute_dtype `{config['compute_dtype']}' (ROADMAP module 7)")
     if write_to_disk and not config.get("nosave", False):
@@ -69,13 +63,36 @@ def check_supported(config, write_to_disk=True):
         viz.check_visualizer(config)
 
 
-def make_optimizer(config, params):
-    """Adam. On the card it is capturable: its step count lives on the
-    device, so a step reads nothing on the host and a CUDA graph can hold
-    it. On the CPU the plain form."""
-    params = list(params)
-    capturable = any(p.is_cuda for p in params)
-    return torch.optim.Adam(params, lr=config["lr"], betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
+def nonsquare_param_groups(density):
+    """(reconstruction params, likelihood params) of the M-flow split
+    (experiment.py:49-87): the likelihood group is the prior of the
+    ``NonSquareTailDensity``, reached through wrappers (``density``), splits
+    (``density_1``) and everything else's ``prior``; the reconstruction
+    group is every other parameter. Both in ``density.parameters()``
+    order."""
+    node = density
+    while not isinstance(node, NonSquareTailDensity):
+        if isinstance(node, DequantizationDensity):
+            node = node.density
+        elif isinstance(node, SplitDensity):
+            node = node.density_1
+        elif isinstance(node, BijectionDensity) or hasattr(node, "prior"):
+            node = node.prior
+        else:
+            raise RuntimeError(f"Cannot walk density node {type(node).__name__}")
+    likelihood = {id(p) for p in node.prior.parameters()}
+    params = list(density.parameters())
+    return ([p for p in params if id(p) not in likelihood], [p for p in params if id(p) in likelihood])
+
+
+def make_optimizers(config, density, steps_per_epoch):
+    """The run's optimizers (experiment.py:177-186): the reconstruction and
+    the likelihood group under ``non_square`` and ``m_flow``, else one."""
+    if config.get("non_square", False) and config.get("m_flow", False):
+        groups = nonsquare_param_groups(density)
+    else:
+        groups = [list(density.parameters())]
+    return [make_optimizer(config, params, steps_per_epoch) for params in groups]
 
 
 def num_params(density):
@@ -185,7 +202,7 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     trainer = Trainer(
         density=density,
         objective=get_objective(config),
-        optimizer=make_optimizer(config, density.parameters()),
+        optimizers=make_optimizers(config, density, max(len(train_loader), 1)),
         train_loader=train_loader,
         max_epochs=config["max_epochs"],
         generator=torch.Generator(device=device).manual_seed(seed),

@@ -3,18 +3,23 @@ in torch).
 
 One step is the JAX package's ``_make_loss_step`` (trainer.py:128-176):
 ``-mean(elbo)`` under an epoch's objective flags, its gradient, the global
-gradient norm and Adam. Where the loss or the norm is not finite, the
-parameters, the optimizer state and the floating-point buffers keep what
-they held before the step (``_keep``, trainer.py:160-173), by a select on the
-device. The step reads nothing on the host: its losses stay on the device
-until the epoch ends, when one read fills ``history`` and the epoch raises
-``FloatingPointError`` if any loss was not finite (trainer.py:296-302).
+gradient norm and the update of the epoch's optimizer,
+``optimizers[flags["optimizer_index"]]`` (``training/optim.py``: one for a
+CMF run, two under the M-flow split, the reconstruction group on even
+engine epochs and the latent prior on odd ones). Where the loss or the norm
+is not finite, the parameters, that optimizer's state and the
+floating-point buffers keep what they held before the step (``_keep``,
+trainer.py:160-173), by a select on the device. The step reads nothing on
+the host: its losses stay on the device until the epoch ends, when one read
+fills ``history`` and the epoch raises ``FloatingPointError`` if any loss
+was not finite (trainer.py:296-302).
 
 Two routes run that one step function. On a CUDA device, where the density
 says its step can run in a graph (``Density.step_capturable``: the exact,
-Cholesky, log-det, no host read and no random draw), the step is captured in
-a CUDA graph per flag key (``_get_step``, trainer.py:178-200), all graphs in
-one memory pool: the counterpart of the jitted, scanned epoch. A key's first
+Cholesky, log-det or the M-flow step's none, no host read and no random
+draw), the step is captured in a CUDA graph per flag key (``_get_step``,
+trainer.py:178-200; the key holds the optimizer index), all graphs in one
+memory pool: the counterpart of the jitted, scanned epoch. A key's first
 step runs eagerly on the capture stream (it builds the kernels and warms
 cuBLAS); its second is captured, then replayed; each later step copies the
 batch into the graph's input and replays. A capture that fails
@@ -35,7 +40,9 @@ Non-finite losses leave ``nan_during_training`` / ``_validation`` /
 ``_test`` checkpoints. Both passes run between epochs, outside the graphs;
 each FID reads the host once, and so does a checkpoint's copy to the host.
 The train telemetry (loss, grad norm, lr every 10 steps) is written from
-the epoch's one read. At start-up the trainer restores ``latest``, else
+the epoch's one read; the lr is the epoch's optimizer's schedule on the
+host at the global iteration, as the JAX trainer writes it
+(trainer.py:292-295). At start-up the trainer restores ``latest``, else
 ``best_valid`` (``best_valid`` first when only testing), by copying into its
 tensors, so the graphs it captures later train the restored state.
 
@@ -111,19 +118,12 @@ class _CapturedStep:
         return self.out.clone().unbind()
 
 
-def _init_adam_state(optimizer):
-    """Adam's state as its first step would make it, made now: the freeze
-    then sees the same tensors before and after every step, and a graph
-    captures no allocation of it. The count is on the device where Adam
-    keeps it there (capturable), else on the host, as torch makes it."""
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            state = optimizer.state[p]
-            if not state:
-                count_device = p.device if group["capturable"] else "cpu"
-                state["step"] = torch.zeros((), dtype=torch.float32, device=count_device)
-                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+def _flat_by_dtype(tensors):
+    """One flat copy of ``tensors`` per dtype: {dtype: (indices, flat)}."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return {dt: (idx, torch.cat([tensors[i].reshape(-1) for i in idx])) for dt, idx in groups.items()}
 
 
 class Trainer:
@@ -131,7 +131,7 @@ class Trainer:
         self,
         density,
         objective,
-        optimizer,
+        optimizers,
         train_loader,
         max_epochs,
         generator=None,
@@ -157,7 +157,10 @@ class Trainer:
         # device the density lives on.
         self.generator = generator
         self.objective = objective
-        self.optimizer = optimizer
+        # One optimizer a group (training/optim.py), its state made at
+        # construction: the freeze sees the same tensors before and after
+        # every step, and a graph captures no allocation of it.
+        self.optimizers = list(optimizers)
         self.train_loader = train_loader
         self.valid_loader = valid_loader
         self.test_loader = test_loader
@@ -178,7 +181,6 @@ class Trainer:
         # The Chrome trace written, once a trainer.
         self.profile_path = None
         self.params = [p for p in density.parameters() if p.requires_grad]
-        _init_adam_state(optimizer)
         self.best_valid_loss = float("inf")
         self.num_bad_valid_epochs = 0
         self.epoch = 0
@@ -190,7 +192,7 @@ class Trainer:
         device = self.params[0].device
         # Every parameter's gradient, zero where the loss does not reach it
         # (the latent prior on a warmup step), as under jax.grad: Adam then
-        # still decays its moments, where torch would skip the parameter.
+        # still decays its moments.
         # Made once, so a graph keeps writing the same tensors.
         self._grads = [torch.zeros_like(p) for p in self.params]
         # The objective's weights, filled before each step: a graph reads
@@ -275,31 +277,31 @@ class Trainer:
             if p.grad is not g:
                 p.grad = g
 
-    def _frozen(self):
-        """What a non-finite step leaves as it was: the parameters, the
-        floating-point buffers, then the optimizer's state (made at init, so
-        the same tensors before and after a step)."""
+    def _frozen(self, optimizer):
+        """What a non-finite step of ``optimizer`` leaves as it was: the
+        parameters, the floating-point buffers, then that optimizer's state
+        (made at init, so the same tensors before and after a step)."""
         buffers = [b for b in self.density.buffers() if b.is_floating_point()]
-        state = [v for p in self.params for v in self.optimizer.state[p].values() if torch.is_tensor(v)]
-        return self.params + buffers + state
+        return self.params + buffers + optimizer.tensors()
 
     def _step_fn(self, x, flags):
         """The step itself: (loss, grad_norm), 0-dim, on the device."""
+        optimizer = self.optimizers[flags["optimizer_index"]]
         torch._foreach_zero_(self._grads)
         step_flags = {**flags, "likelihood_wt": self._likelihood_wt, "metric_wt": self._metric_wt}
         loss = elbo_loss(self.density, x, step_flags, self.generator)
         loss.backward()
         loss = loss.detach()
+        frozen = self._frozen(optimizer)
         with torch.no_grad():
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._grads)))
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
-            kept = torch.cat([t.reshape(-1) for t in self._frozen()])
-        self.optimizer.step()
+            kept = _flat_by_dtype(frozen)
+        optimizer.step()
         with torch.no_grad():
-            frozen = self._frozen()
-            new = torch.cat([t.reshape(-1) for t in frozen])
-            keep = torch.where(ok, new, kept).split([t.numel() for t in frozen])
-            torch._foreach_copy_(frozen, [k.view_as(t) for k, t in zip(keep, frozen)])
+            for idx, new in _flat_by_dtype(frozen).values():
+                keep = torch.where(ok, new, kept[new.dtype][1]).split([frozen[i].numel() for i in idx])
+                torch._foreach_copy_([frozen[i] for i in idx], [k.view_as(frozen[i]) for k, i in zip(keep, idx)])
         return loss, grad_norm
 
     def _on_capture_stream(self, x, flags):
@@ -341,10 +343,6 @@ class Trainer:
         flags = self.objective.for_epoch(epoch)
         if flags["skip_epoch"]:
             return
-        if flags["optimizer_index"] != 0:
-            raise NotImplementedError(
-                "a second optimizer group (m-flow) waits for a later slice of the port"
-            )
         with self._timed("train"), self._profiled(epoch):
             start = time.perf_counter()
             steps = [torch.stack(self.step(x, flags)) for x in self.train_loader]
@@ -355,14 +353,14 @@ class Trainer:
         skip = bool(flags["skip_likelihood"])
         self.history += [(epoch, loss, norm, skip) for loss, norm in values]
         # The reference's every-10-steps scalars, from the epoch's one read
-        # (trainer.py:282-296). The learning rate is constant.
-        lr = self.optimizer.param_groups[0]["lr"]
+        # (trainer.py:282-296).
+        optimizer = self.optimizers[flags["optimizer_index"]]
         for j, (loss, norm) in enumerate(values):
             i = self.iteration + j + 1
             if i % _STEPS_PER_WRITE == 0:
                 self.writer.write_scalar("train/loss", loss, global_step=i)
                 self.writer.write_scalar("train/grad-norm", norm, global_step=i)
-                self.writer.write_scalar("train/lr", lr, global_step=i)
+                self.writer.write_scalar("train/lr", float(optimizer.host_rate(i)), global_step=i)
         self.iteration += len(values)
         print(
             f"epoch {epoch}: {len(values)} steps, last loss {values[-1][0]:.6g}, "

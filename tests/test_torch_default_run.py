@@ -64,7 +64,7 @@ class _Recorder:
 def _port_trainer(**kw):
     density = get_density(small_schema(), x_shape=(DIM,), device="cpu", generator=torch.Generator().manual_seed(3))
     objective = get_objective(small_config(likelihood_warmup=False))
-    trainer = Trainer(density, objective, make_optimizer({"lr": 1e-3}, density.parameters()), None,
+    trainer = Trainer(density, objective, [make_optimizer({"lr": 1e-3}, density.parameters())], None,
                       max_epochs=1, generator=torch.Generator().manual_seed(0), **kw)
     return trainer
 
@@ -228,8 +228,9 @@ def test_nan_epoch_checkpoints_the_last_finite_state(tmp_path):
     assert (ckpt["epoch"], ckpt["iteration"]) == (1, 4)
     for name, p in twin.density.named_parameters():
         assert torch.equal(ckpt["params"][name], p.detach()), name
-        for key, value in twin.optimizer.state[p].items():
-            assert torch.equal(ckpt["opt_states"][f"{name}/{key}"], value), (name, key)
+        for key, value in twin.optimizers[0].state[p].items():
+            assert torch.equal(ckpt["opt_states"][f"0/{name}/{key}"], value), (name, key)
+    assert torch.equal(ckpt["opt_states"]["0/count"], twin.optimizers[0].count)
 
 
 SMALL = ["--config", "num_density_layers=2", "--config", "coupler_hidden_channels=[16]",

@@ -88,7 +88,7 @@ def test_train_split_under_1000_rows_gives_no_batch_in_either(pair):
                        batch_sharding=None, _eval_cache={})
     with pytest.raises(KeyError):
         jt.test_ood(jax_loader, "ood_metrics_train_in")
-    trainer = Trainer(td, get_objective(_mnist_config()), make_optimizer({"lr": 1e-4}, td.parameters()),
+    trainer = Trainer(td, get_objective(_mnist_config()), [make_optimizer({"lr": 1e-4}, td.parameters())],
                       None, max_epochs=0)
     with pytest.raises(KeyError):
         trainer.test_ood(loader, "ood_metrics_train_in")

@@ -43,7 +43,7 @@ def test_three_step_trajectory_matches_optax_adam():
 
     opt = optax.chain(optax.scale_by_adam(), optax.scale_by_learning_rate(LR))
     params, opt_state = jv["params"], opt.init(jv["params"])
-    trainer = Trainer(td, objective, make_optimizer({"lr": LR}, td.parameters()), [], max_epochs=0)
+    trainer = Trainer(td, objective, [make_optimizer({"lr": LR}, td.parameters())], [], max_epochs=0)
     losses_j, losses_t, rounding_only = [], [], {}
     for x, f in zip(xs, flags):
         def loss_fn(p, f=f, x=x):
@@ -120,13 +120,13 @@ def test_get_loaders_matches_with_dataset_cap():
 _PORTED = [
     ({"dataset": "mnist", "test_metric": True}, "dataset-mnist-test_metric-True"),
     ({"dataset": "mnist", "test_center": True}, "dataset-mnist-test_center-True"),
-]
-_UNPORTED = [
-    ({"checkpoint_backend": "orbax"}, "checkpoint_backend-orbax"),
     ({"m_flow": True}, "m_flow-True"),
     ({"lr_schedule": "cosine"}, "lr_schedule-cosine"),
     ({"max_grad_norm": 1.0}, "max_grad_norm-1.0"),
     ({"opt": "adamax"}, "opt-adamax"),
+]
+_UNPORTED = [
+    ({"checkpoint_backend": "orbax"}, "checkpoint_backend-orbax"),
     ({"compute_dtype": "bfloat16"}, "compute_dtype-bfloat16"),
 ]
 
@@ -134,8 +134,8 @@ _UNPORTED = [
 @pytest.mark.parametrize("overrides", [o for o, _ in _UNPORTED], ids=[i for _, i in _UNPORTED])
 def test_unported_config_raises(overrides):
     """The flagship's published defaults pass (a run dir, early stopping,
-    FID), and so do mnist's. Still refused: the orbax checkpoint backend,
-    and the rest."""
+    FID), and so do mnist's. Still refused: the orbax checkpoint backend
+    and bfloat16 compute."""
     config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)
@@ -147,7 +147,7 @@ def test_unported_config_raises(overrides):
 @pytest.mark.parametrize("overrides", [o for o, _ in _PORTED], ids=[i for _, i in _PORTED])
 def test_ported_config_passes(overrides):
     """mnist's metric and centering analyses into a run dir (matplotlib
-    imports here)."""
+    imports here), the M-flow baseline and the optimizer options."""
     config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
     check_supported({**config, **overrides})
 

@@ -143,12 +143,12 @@ def _density():
 
 def _trainer(density, writer=None, seed=0):
     objective = get_objective(small_config(likelihood_warmup=False))
-    return Trainer(density, objective, make_optimizer({"lr": 1e-3}, density.parameters()), None,
+    return Trainer(density, objective, [make_optimizer({"lr": 1e-3}, density.parameters())], None,
                    max_epochs=1, generator=torch.Generator().manual_seed(seed), writer=writer)
 
 
 def _all_tensors(trainer):
-    state = [v for p in trainer.params for v in trainer.optimizer.state[p].values()]
+    state = [v for opt in trainer.optimizers for v in opt.tensors()]
     return list(trainer.density.parameters()) + list(trainer.density.buffers()) + state
 
 
@@ -198,7 +198,7 @@ def test_startup_restore_order(tmp_path, capsys):
         trainer.epoch = epoch
         writer.write_checkpoint(tag, make_checkpoint(trainer))
     objective = trainer.objective
-    optimizer = lambda: make_optimizer({"lr": 1e-3}, td.parameters())  # noqa: E731
+    optimizer = lambda: [make_optimizer({"lr": 1e-3}, td.parameters())]  # noqa: E731
     train = Trainer(td, objective, optimizer(), None, 1, writer=writer)
     test = Trainer(td, objective, optimizer(), None, 1, writer=writer, only_testing=True)
     assert (train.restored_from, train.epoch) == ("latest", 7)

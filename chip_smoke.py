@@ -106,8 +106,8 @@ Phases, each of which fails the run on its own failure:
                   samples. Seconds of the run, its share outside training
                   steps, ms per FID pass and its parts, the card's idle share
                   over one pass.
-15. ood        -- ``density.ood`` of that model on 100 synthetic mnist and
-                  100 synthetic fashion-mnist test images, card against CPU
+15. ood        -- ``density.ood`` of that model on 25 synthetic mnist and
+                  25 synthetic fashion-mnist test images, card against CPU
                   on the same weights; the stump accuracies of the OOD
                   battery's rule on the two outputs.
 
@@ -151,6 +151,24 @@ Phases, each of which fails the run on its own failure:
                   ms of a captured step beside Adam's, one update on the
                   card against the CPU's from the same state and gradients,
                   the rate read back from the device against the formula.
+18. square-cif -- the tabular square NSF and CIFs at miniboone's published
+                  widths: ``--model maf``, ``--model nsf-ar --baseline``,
+                  ``--model nsf-ar`` and ``--model cond-affine`` (a two-job
+                  grid), each into a run dir for 1-2 epochs of 3 steps
+                  (validation by FID where early stopping is on, a test
+                  pass at epoch 1 with FID on 10,000 samples, checkpoints),
+                  with no Gram/log-det or coupler launch over the runs;
+                  each run dir resumed one epoch (its restored state and
+                  generator bit-equal to ``latest``, trained through a
+                  graph) and tested (``--test --resume``, 50,000 FID
+                  samples); then for each model 3 captured steps against 3
+                  eager ones (the CIF's u drawn inside the graph from the
+                  trainer's registered generator), ms a captured step and
+                  its idle share, ms an eager step, a card step against the
+                  CPU on the same u, and one ``sample(5000)`` call under the
+                  profiler (not the CIF NSF's: its inverse is the square
+                  NSF's); the spline knots' running sum by ``torch.cumsum``
+                  against the port's triangular product.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -300,7 +318,7 @@ INCEPTION_CPU_TOL = 1e-4
 # OOD features on the card against the CPU: the exact log-det of a 20x20
 # Gram of JVP columns through ten ResNet couplers, fp32 both sides.
 OOD_TOL = 1e-4
-OOD_IMAGES = 100
+OOD_IMAGES = 25  # a dataset; the CPU side takes about half a second an image
 # The image metric analysis of the phase-11 mnist model: its defaults (256
 # images, d = 20), the centring at 8, the per-dimension FID at 512 samples a
 # k in batches of 128. Kernel-routed calls (encodes, decodes, fixed samples;
@@ -380,6 +398,21 @@ OPTION_CONFIG = {"likelihood_warmup": False, "max_dataset_size": 4000, "seed": 0
 # parameter tensor, where one rounding unit of p is 1.2e-7 of it.
 OPT_TOL = 1e-5
 OPT_PARAM_TOL = 1e-6
+# The tabular square NSF and CIFs: miniboone's published configs at full
+# width (``config/defaults/tabular.py``), each run into a run dir for a few
+# steps: (tag, CLI model arguments, dataset cap, epochs, jobs). The cap
+# applies to every split, so it sets the steps an epoch (3 at the published
+# batch, 1000 for maf and cond-affine, 64 for the NSFs) and the test split's
+# rows; the FID keeps its published 10,000 samples in chunks of 5,000.
+SQUARE_CIF_RUNS = [
+    ("maf", ["--model", "maf"], 3000, 1, 1),
+    ("nsf-ar --baseline", ["--model", "nsf-ar", "--baseline"], 192, 2, 1),
+    ("nsf-ar", ["--model", "nsf-ar"], 192, 2, 1),
+    ("cond-affine", ["--model", "cond-affine"], 3000, 1, 2),
+]
+# The runs whose sample(5000) the phase profiles: the CIF NSF inverts through
+# the square NSF's AR splines, and a profile of its ~48,000 ops costs seconds.
+SQUARE_CIF_SAMPLE_PROFILED = ("maf", "nsf-ar --baseline", "cond-affine")
 
 
 def rel_err(got, ref):
@@ -920,7 +953,8 @@ def card_vs_cpu(setup, x, flags, tag, loss_tol, grad_tol, **draws):
     for model, dev in ((gpu, x.device), (cpu, torch.device("cpu"))):
         model.zero_grad(set_to_none=True)
         t0 = time.perf_counter()
-        loss = elbo_loss(model, x.to(dev), flags, **{k: v.to(dev) for k, v in draws.items()})
+        moved = {k: [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev) for k, v in draws.items()}
+        loss = elbo_loss(model, x.to(dev), flags, **moved)
         loss.backward()
         # A parameter the loss does not reach (the other M-flow group) has
         # no gradient: zero, as jax.grad gives it.
@@ -1027,9 +1061,13 @@ def captured_vs_eager(argv, tag):
     """A fresh trainer's captured steps against another's eager steps of the
     same step function, from the same weights, on the train loader's first
     epoch of batches. Returns (captured, eager, flags, batches)."""
+    return trainers_captured_vs_eager(fresh_setup(argv)["trainer"], fresh_setup(argv)["trainer"], tag)
+
+
+def trainers_captured_vs_eager(captured, eager, tag):
+    """``captured_vs_eager`` on two given trainers of the same weights."""
     import torch
 
-    captured, eager = fresh_setup(argv)["trainer"], fresh_setup(argv)["trainer"]
     flags = captured.objective.for_epoch(1)
     batches = list(captured.train_loader)
     n = len(batches)
@@ -2395,34 +2433,235 @@ def phase_mflow(smi, root):
     print(f"[mflow] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+def square_cif_argv(model_args, cap, epochs):
+    return model_args + ["--dataset", "miniboone", "--synthetic-data", "--config", f"max_dataset_size={cap}",
+                         "--config", f"max_epochs={epochs}", "--config", "seed=0"]
+
+
+def square_cif_setup(model_args, cap, epochs):
+    """The setup the CLI makes of ``square_cif_argv(...) + ["--nosave"]``,
+    before any step (``fresh_setup``'s ``max_epochs=0`` would give the
+    cosine schedule no steps)."""
+    from cmf_tpu_torch.config import expand_grid, get_config
+    from cmf_tpu_torch.training import experiment
+
+    model = model_args[1]
+    config = expand_grid(get_config("miniboone", model, use_baseline="--baseline" in model_args))[0]
+    config = {**config, "model": model, "dataset": "miniboone", "synthetic_data": True, "nosave": True,
+              "max_dataset_size": cap, "max_epochs": epochs, "seed": 0}
+    return experiment.setup_experiment(config, write_to_disk=False)
+
+
+def square_cif_resume_and_test(tag, run_dir, epochs, steps):
+    """A copy of the run dir trained one more epoch (its restored state
+    bit-equal to ``latest``), then ``--test --resume`` on the run dir."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.training import experiment
+    from cmf_tpu_torch.training.checkpoint import make_checkpoint
+
+    resumed_dir = run_dir + "_resumed"
+    shutil.copytree(run_dir, resumed_dir)
+    with open(os.path.join(resumed_dir, "config.json")) as f:
+        config = json.load(f)
+    config["max_epochs"] = epochs + 1
+    with open(os.path.join(resumed_dir, "config.json"), "w") as f:
+        json.dump(config, f)
+    saved = torch.load(os.path.join(resumed_dir, "checkpoints", "latest.pt"), weights_only=True)
+    setup_r = experiment.setup_experiment(config, resume_dir=resumed_dir)
+    trainer_r = setup_r["trainer"]
+    loaded = make_checkpoint(trainer_r)
+    tensors = [(s, k) for s in ("params", "model_state", "opt_states") for k in saved[s]]
+    same = all(torch.equal(loaded[s][k], saved[s][k]) for s, k in tensors) and \
+        torch.equal(loaded["rng"], saved["rng"])
+    trainer_r.train()
+    torch.cuda.synchronize()
+    history_r = trainer_r.history
+    print(f"[square-cif] {tag}: resumed from `{trainer_r.restored_from}' after epoch {saved['epoch']}: "
+          f"{len(tensors)} tensors and the generator state bit-equal {same}; then epochs "
+          f"{sorted({h[0] for h in history_r})}, {len(history_r)} steps, {len(captured_steps(trainer_r))} graph(s)")
+    assert trainer_r.restored_from == "latest" and same, f"{tag}: the resumed state differs from `latest'"
+    assert [h[0] for h in history_r] == [epochs + 1] * steps, f"{tag}: the resumed run trained other epochs"
+    assert all(math.isfinite(h[1]) for h in history_r), f"{tag}: non-finite loss in the resumed run"
+    assert len(captured_steps(trainer_r)) == (1 if trainer_r.captured else 0)
+
+    t0 = time.perf_counter()
+    (tested,) = cli_main(["--test", "--resume", run_dir])
+    test_s = time.perf_counter() - t0
+    with open(os.path.join(run_dir, "metrics.json")) as f:
+        results = json.load(f)
+    shown = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in results.items()}
+    print(f"[square-cif] {tag}: --test --resume from `{tested['trainer'].restored_from}' "
+          f"({tested['config']['num_fid_samples']:,} FID samples): metrics.json {shown}; {test_s:.4f} s")
+    numbers = [v for k, v in results.items() if k != "feature_extractor"]
+    assert {"elbo", "log-prob", "bpd", "elbo-gap", "fid"} <= set(results), f"{tag}: metrics.json lacks a metric"
+    assert all(math.isfinite(v) for v in numbers), f"{tag}: non-finite test metric"
+
+
+def phase_square_cif(smi, root):
+    """The tabular square NSF and CIFs on the card: the four commands at
+    their published widths into run dirs (validation by FID where early
+    stopping is on, a test pass, checkpoints), each resumed one epoch and
+    tested from its run dir; no Gram/log-det or coupler launch; then for
+    each, captured steps against eager ones (the CIF's u drawn inside the
+    graph from the trainer's generator), ms a step and the idle share of
+    each route, and a card step against the CPU."""
+    import torch
+    from cmf_tpu_torch.densities import ELBODensity, elbo
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    phase_t0 = time.perf_counter()
+    streams = sys.stdout, sys.stderr
+    print(f"[square-cif] CUDA graphs hold a draw of the caller's generator: {elbo.GRAPH_SAFE_GENERATORS} "
+          f"(CUDAGraph.register_generator_state; torch {torch.__version__})")
+    runs = []
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        cs.reset_launch_counts()
+        for tag, model_args, cap, epochs, jobs in SQUARE_CIF_RUNS:
+            t0 = time.perf_counter()
+            setups = cli_main(square_cif_argv(model_args, cap, epochs) + ["--logdir-root", root])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            _restore_streams(streams)
+            assert len(setups) == jobs, f"{tag}: {len(setups)} jobs, expected {jobs}"
+            for job, setup in enumerate(setups):
+                label = f"{tag} (job {job}, q_nets {setup['config']['q_nets']})" if jobs > 1 else tag
+                runs.append((tag, label, job, model_args, cap, epochs, setup, seconds / jobs))
+        torch.cuda.synchronize()
+        launches = gl.launch_counts(), cs.LAUNCHES
+
+        for tag, label, job, model_args, cap, epochs, setup, seconds in runs:
+            trainer, density, config = setup["trainer"], setup["density"], setup["config"]
+            run_dir = setup["writer"].logdir
+            history = trainer.history
+            cif_layers = sum(isinstance(m, ELBODensity) for m in density.modules())
+            steps = len(trainer.train_loader)
+            valid = _scalar_steps(run_dir, "valid/loss")
+            tests = {k: _scalar_steps(run_dir, f"test/{k}") for k in ("log-prob", "fid")}
+            timings = trainer.timings
+            train_s = timings["train"][1]
+            fid_n, fid_s = timings.get("fid", (0, 0.0))
+            print(f"[square-cif] {label}: {type(density).__name__} root, {cif_layers} CIF layers (u = "
+                  f"{config['num_u_channels'] if cif_layers else 0}), {sum(p.numel() for p in density.parameters()):,} "
+                  f"parameters; batch {config['train_batch_size']}, {config['opt']} lr {config['lr']:g}, schedule "
+                  f"{config['lr_schedule']}, max_grad_norm {config['max_grad_norm']}; {len(history)} steps over "
+                  f"epochs {sorted({h[0] for h in history})}, losses {history[0][1]:.6g} -> {history[-1][1]:.6g}; "
+                  f"route {'captured' if trainer.captured else 'eager'}, {len(captured_steps(trainer))} graph(s); "
+                  f"valid/loss (FID) at {sorted(valid)}: {', '.join(f'{v:.6g}' for v in valid.values())}; "
+                  f"test/log-prob {tests['log-prob']}, test/fid {tests['fid']}")
+            print(f"[square-cif] {label} {smi}: the run took {seconds:.4f} s; {fid_n} FID pass(es) of "
+                  f"{config['num_fid_samples']:,} samples, {fid_s / max(fid_n, 1) * 1e3:.4f} ms each; training epochs "
+                  f"{train_s:.4f} s, so {1 - train_s / seconds:.4f} of the run outside training steps (host clock)")
+            assert all(math.isfinite(h[1]) for h in history), f"{tag}: non-finite training loss"
+            assert len(history) == epochs * steps and steps >= 3, f"{tag}: steps != epochs x batches"
+            assert (cif_layers > 0) == ("--baseline" not in model_args), f"{tag}: the wrong family was built"
+            assert trainer.captured == (density.step_capturable and setup["device"].type == "cuda"), \
+                f"{tag}: the route does not follow the rule"
+            assert len(captured_steps(trainer)) == (1 if trainer.captured else 0), f"{tag}: not one graph"
+            assert sorted(valid) == (list(range(1, epochs + 1)) if config["early_stopping"] else []), \
+                f"{tag}: validated on other epochs"
+            assert sorted(tests["fid"]) == sorted(tests["log-prob"]) == [1], f"{tag}: no test pass at epoch 1"
+            assert all(math.isfinite(v) for d in [valid] + list(tests.values()) for v in d.values()), \
+                f"{tag}: a non-finite validation or test number"
+            assert fid_n == len(valid) + 1, f"{tag}: FID passes != validations + tests"
+        print(f"[square-cif] Gram/log-det launches (fwd, bwd) {launches[0]} and coupler launches {launches[1]} "
+              f"over the {len(runs)} runs")
+        assert launches == ((0, 0), 0), "a kernel launched on the tabular square and CIF runs"
+
+        for tag, _, job, _, _, epochs, setup, _ in runs:
+            if job == 0:
+                square_cif_resume_and_test(tag, setup["writer"].logdir, epochs, len(setup["trainer"].train_loader))
+                _restore_streams(streams)
+    finally:
+        _restore_streams(streams)
+
+    # Each model's step: captured against eager, times, idle shares, the CPU.
+    for tag, model_args, cap, epochs, jobs in SQUARE_CIF_RUNS:
+        probe = square_cif_setup(model_args, cap, epochs)
+        density = probe["density"]
+        second = square_cif_setup(model_args, cap, epochs)
+        if density.step_capturable:
+            captured, eager, flags, batches = trainers_captured_vs_eager(
+                probe["trainer"], second["trainer"], f"square-cif {tag}")
+            x = batches[0]
+            replay_ms = cuda_ms(lambda: captured.step(x, flags), iters=20, warmup=2)
+            print(f"[square-cif] {smi}: {tag}, captured: {replay_ms:.4f} ms per step back to back (CUDA events), "
+                  f"{x.shape[0] / replay_ms * 1e3:.1f} samples/s")
+            profile_steps(captured.step, x, flags, 3, "square-cif", f"{tag}, captured: ")
+        else:
+            # The rule of ``ELBODensity.step_capturable``: no graph holds the
+            # caller's generator in this PyTorch.
+            assert not elbo.GRAPH_SAFE_GENERATORS, f"{tag}: the step is not capturable"
+            eager = second["trainer"]
+            flags, x = eager.objective.for_epoch(1), next(iter(eager.train_loader))
+            print(f"[square-cif] {tag}: the step is eager by ELBODensity.step_capturable's rule")
+        step_time(eager.eager_step, x, flags, 5, "square-cif", f"{tag}, eager: ")
+        gen = torch.Generator(device=x.device).manual_seed(7)
+        draws = {}
+        layers = [m for m in density.modules() if isinstance(m, ELBODensity)]
+        if layers:
+            num_u = probe["config"]["num_u_channels"]
+            draws["u_noise"] = [torch.randn(x.shape[0], num_u, generator=gen, device=x.device) for _ in layers]
+        card_vs_cpu(second, x, flags, f"square-cif {tag}", STEP_LOSS_TOL, STEP_GRAD_TOL, **draws)
+        # A FID chunk's samples: the inverse's sequential passes.
+        if tag in SQUARE_CIF_SAMPLE_PROFILED:
+            chunk = probe["config"]["test_batch_size"]
+            profile_steps(lambda *_: density.sample(chunk, generator=gen), None, None, 1, "square-cif",
+                          f"{tag}, sample({chunk}): ", unit="call")
+    # The spline's knots sum K = 4 bins: torch.cumsum's scan against the
+    # product with a triangle of ones that the port uses, at a sample's shape.
+    sizes = torch.rand(5000, 43, 4, device="cuda")
+    triangle = torch.ones(4, 4, device="cuda").triu()
+    scan_ms = cuda_ms(lambda: torch.cumsum(sizes, dim=-1), iters=20, warmup=2)
+    product_ms = cuda_ms(lambda: sizes @ triangle, iters=20, warmup=2)
+    err = float((torch.cumsum(sizes, dim=-1) - sizes @ triangle).abs().max())
+    print(f"[square-cif] {smi}: the knots' running sum over (5000, 43, 4): torch.cumsum {scan_ms:.4f} ms, "
+          f"the triangular product {product_ms:.4f} ms (CUDA events), max diff {err:.3e}")
+    print(f"[square-cif] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run", file=sys.stderr)
         return 1
-    name, smi = phase_device()
-    phase_build()
-    kernels = phase_kernels() + [phase_coupler_kernel()]
-    phase_kernels_small()
-    counts, step_ms = phase_train()
-    phase_captured(step_ms)
-    phase_warmup()
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[timing] {name}: {time.perf_counter() - t0:.2f} s (the smoke so far "
+              f"{time.perf_counter() - t_start:.2f} s)", flush=True)
+        return out
+
+    name, smi = timed("device", phase_device)
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels) + [timed("coupler", phase_coupler_kernel)]
+    timed("kernels-small", phase_kernels_small)
+    counts, step_ms = timed("train", phase_train)
+    timed("captured", phase_captured, step_ms)
+    timed("warmup", phase_warmup)
     runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
     os.makedirs(runs, exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_", dir=runs)
     try:
-        default_run_dir = phase_default(smi, root)
-        phase_default_sphere(smi)
-        phase_cmf_battery(smi)
-        setup = phase_train_mnist()
-        phase_sample(setup)
-        phase_inception(smi)
-        mnist_setup, coupler_launches = phase_default_mnist(smi)
+        default_run_dir = timed("default", phase_default, smi, root)
+        timed("default-sphere", phase_default_sphere, smi)
+        timed("cmf-battery", phase_cmf_battery, smi)
+        setup = timed("train-mnist", phase_train_mnist)
+        timed("sample", phase_sample, setup)
+        timed("inception", phase_inception, smi)
+        mnist_setup, coupler_launches = timed("default-mnist", phase_default_mnist, smi)
         counts["COUPLER_LAUNCHES"] = coupler_launches
-        phase_ood(mnist_setup, smi)
-        phase_metric_mnist(setup, default_run_dir, root, smi)
-        phase_mflow(smi, root)
+        timed("ood", phase_ood, mnist_setup, smi)
+        timed("metric-mnist", phase_metric_mnist, setup, default_run_dir, root, smi)
+        timed("mflow", phase_mflow, smi, root)
+        timed("square-cif", phase_square_cif, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

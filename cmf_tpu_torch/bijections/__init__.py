@@ -1,4 +1,4 @@
-from .affine import AffineBijection
+from .affine import AffineBijection, ConditionalAffineBijection
 from .base import Bijection
 from .coupling import (
     AlternatingChannelwiseCouplingBijection,
@@ -6,15 +6,23 @@ from .coupling import (
     SplitChannelwiseCouplingBijection,
 )
 from .elementwise import LogitBijection, ScalarAdditionBijection, ScalarMultiplicationBijection
+from .linear import LULinearBijection
+from .made import MADEBijection
 from .reshaping import (
     FlipBijection,
     RandomChannelwisePermutationBijection,
     Squeeze2dBijection,
     ViewBijection,
 )
+from .spline import AutoregressiveRationalQuadraticSplineBijection, rational_quadratic_spline
 
 __all__ = [
     "AffineBijection",
+    "AutoregressiveRationalQuadraticSplineBijection",
+    "ConditionalAffineBijection",
+    "LULinearBijection",
+    "MADEBijection",
+    "rational_quadratic_spline",
     "Bijection",
     "AlternatingChannelwiseCouplingBijection",
     "Checkerboard2dCouplingBijection",

@@ -1,10 +1,12 @@
-"""The affine bijection (``cmf_tpu/bijections/affine.py:9-40`` in torch),
-the low-dimensional prior of the 2-D zoo's non-square models.
+"""The affine bijections (``cmf_tpu/bijections/affine.py`` in torch).
 
-z = x·exp(s) + t with learned s (``log_scale``) and t (``shift``), zero at
-init; per channel (one value a channel, the log-jacobian counted over the
-other axes) or over the whole shape. The conditional (CIF) form waits for
-the u-channel densities.
+``AffineBijection`` (affine.py:9-40), the low-dimensional prior of the 2-D
+zoo's non-square models: z = x·exp(s) + t with learned s (``log_scale``)
+and t (``shift``), zero at init; per channel (one value a channel, the
+log-jacobian counted over the other axes) or over the whole shape.
+
+``ConditionalAffineBijection`` (affine.py:49-79), the CIF layer:
+z = (x + t(u))·exp(s(u)), its coupler mapping the index u to (t, s).
 """
 
 import numpy as np
@@ -34,3 +36,21 @@ class AffineBijection(Bijection):
 
     def inverse(self, z):
         return (z - self.shift) * torch.exp(-self.log_scale), -self._log_jac(z.shape[0])
+
+
+class ConditionalAffineBijection(Bijection):
+    def __init__(self, x_shape, coupler):
+        super().__init__(x_shape=x_shape, z_shape=x_shape)
+        self.coupler = coupler
+
+    @staticmethod
+    def _sum_log_jac(log_scale):
+        return log_scale.reshape(log_scale.shape[0], -1).sum(dim=1)
+
+    def forward(self, x, u=None):
+        shift, log_scale = self.coupler(u)
+        return (x + shift) * torch.exp(log_scale), self._sum_log_jac(log_scale)
+
+    def inverse(self, z, u=None):
+        shift, log_scale = self.coupler(u)
+        return z * torch.exp(-log_scale) - shift, -self._sum_log_jac(log_scale)

@@ -4,12 +4,13 @@ A bijection is an ``nn.Module`` holding its parameters; constant buffers
 (masks, index vectors) are non-persistent buffers that move with ``.to``.
 
 * ``forward(x) -> (z, log_jac)``, log_jac shaped (B,);
-* ``inverse(z) -> (x, log_jac)``;
+* ``inverse(z) -> (x, log_jac)``; a conditional (CIF) bijection takes the
+  index as well, ``forward(x, u)`` and ``inverse(z, u)``;
 * ``inverse_point(z) -> x``, the decode path without the log-jacobian.
 
 Shapes are the static attributes ``x_shape`` / ``z_shape`` (no batch dim).
-The layers of this slice carry no running state (no batch-norm), so no
-method returns an updated state.
+The ported layers carry no running state (no batch-norm), so no method
+returns an updated state.
 """
 
 from torch import nn

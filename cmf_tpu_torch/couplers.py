@@ -29,3 +29,17 @@ class ChunkedSharedCoupler(nn.Module):
         c = out.shape[1]
         assert c % 2 == 0
         return out[:, : c // 2], out[:, c // 2 :]
+
+
+class IndexedSharedCoupler(nn.Module):
+    """One net emitting (B, 2, D): head 0 is the shift, head 1 the
+    log-scale; MADE's coupler (couplers.py:54-68)."""
+
+    def __init__(self, shift_log_scale_net):
+        super().__init__()
+        self.net = shift_log_scale_net
+
+    def forward(self, inputs):
+        out = self.net(inputs)
+        assert out.dim() > 2 and out.shape[1] == 2
+        return out[:, 0], out[:, 1]

@@ -22,9 +22,10 @@ same keys as the JAX package's ``{"params", "state"}`` trees, so
   likelihood term and reconstruction error (exact log-det), the OOD
   battery's features; through the chain to the non-square head.
 * ``step_capturable`` — whether a training step's elbo can run inside a CUDA
-  graph: it reads nothing on the host and draws no random numbers. A density
-  is as capturable as the densities it holds; one that reads the host or
-  draws says no itself.
+  graph: it reads nothing on the host and draws no random numbers, or draws
+  them only from a generator the graph can hold (the CIF's u). A density is
+  as capturable as the densities it holds; one that reads the host or draws
+  says so itself.
 """
 
 import torch

@@ -1,7 +1,11 @@
-"""Diagonal Gaussian densities (``cmf_tpu/densities/gaussian.py`` in torch)."""
+"""Diagonal Gaussian densities (``cmf_tpu/densities/gaussian.py`` in torch):
+the fixed standard Gaussian at the base of every flow, and the conditional
+Gaussian q(u|x) / p(u|z) of the CIF layers with its reparameterised sample
+and entropy."""
 
 import numpy as np
 import torch
+from torch import nn
 
 from .base import Density
 
@@ -16,6 +20,29 @@ def diagonal_gaussian_log_prob(w, means, stddevs):
     log_det = -0.5 * torch.log(flat_vars).sum(dim=1)
     quad = -0.5 * ((flat_w - flat_means) ** 2 / flat_vars).sum(dim=1)
     return const + log_det + quad
+
+
+def diagonal_gaussian_sample(means, stddevs, generator=None, noise=None):
+    """A reparameterised sample and its log-prob (gaussian.py:23-33): ε is
+    ``noise`` where the caller passes it (the parity tests pass the JAX
+    package's draw), else a standard normal draw from ``generator`` on the
+    means' device."""
+    epsilon = noise
+    if epsilon is None:
+        epsilon = torch.randn(means.shape, generator=generator, dtype=means.dtype, device=means.device)
+    samples = stddevs * epsilon + means
+    flat_eps = epsilon.reshape(epsilon.shape[0], -1)
+    flat_std = stddevs.reshape(stddevs.shape[0], -1)
+    dim = flat_eps.shape[1]
+    eps_lp = -0.5 * dim * np.log(2 * np.pi) - 0.5 * (flat_eps**2).sum(dim=1)
+    return samples, -torch.log(flat_std).sum(dim=1) + eps_lp
+
+
+def diagonal_gaussian_entropy(stddevs):
+    """(gaussian.py:36-39), (B,)."""
+    flat_std = stddevs.reshape(stddevs.shape[0], -1)
+    dim = flat_std.shape[1]
+    return torch.log(flat_std).sum(dim=1) + 0.5 * dim * (1 + np.log(2 * np.pi))
 
 
 class DiagonalGaussianDensity(Density):
@@ -52,3 +79,27 @@ class DiagonalGaussianDensity(Density):
 
     def extract_latent(self, x, earliest=False):
         return x
+
+
+class DiagonalGaussianConditionalDensity(nn.Module):
+    """q(u|x) or p(u|z), a diagonal Gaussian whose means and log-stddevs
+    come from a coupler of the conditioning input (gaussian.py:78-102). Not
+    a ``Density``: a conditional distribution with ``log_prob``, ``sample``
+    and ``entropy``."""
+
+    def __init__(self, coupler):
+        super().__init__()
+        self.coupler = coupler
+
+    def means_and_stddevs(self, cond_inputs):
+        shift, log_scale = self.coupler(cond_inputs)
+        return shift, torch.exp(log_scale)
+
+    def log_prob(self, inputs, cond_inputs):
+        return diagonal_gaussian_log_prob(inputs, *self.means_and_stddevs(cond_inputs))
+
+    def sample(self, cond_inputs, generator=None, noise=None):
+        return diagonal_gaussian_sample(*self.means_and_stddevs(cond_inputs), generator, noise)
+
+    def entropy(self, cond_inputs):
+        return diagonal_gaussian_entropy(self.means_and_stddevs(cond_inputs)[1])

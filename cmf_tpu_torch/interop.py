@@ -5,19 +5,26 @@ numpy arrays (nested dicts and lists, as ``cmf_tpu``'s ``init`` returns it,
 converted leaf by leaf with ``np.asarray``) and copies every leaf into the
 matching parameter (``params``) or persistent buffer (``state``) of
 ``density``. The port's module attributes carry the JAX tree's keys, so the
-dotted paths agree, with one exception: ``ChunkedSharedCoupler`` keeps its
-net as ``.net`` while the JAX coupler's params are the net's own.
+dotted paths agree, with two exceptions (``jax_path``): a shared coupler
+(``ChunkedSharedCoupler``, ``IndexedSharedCoupler``) keeps its net as
+``.net`` while the JAX coupler's params are the net's own, and a CIF
+layer's conditional densities (``p_u``, ``q_u``) keep their coupler as
+``.coupler`` while the JAX tree holds the coupler's params directly. Lists
+of the JAX state (the MADE masks) are buffers named ``0``, ``1``, ....
 
-The state comes across too: the tail's ``permutation`` /
-``inverse_permutation`` above all, since a permutation drawn anew would
-silently give another model. Every leaf on both sides must be matched, in
-shape, or this raises.
+The state comes across too: the tail's and every ``rand-channel-perm``'s
+``permutation`` / ``inverse_permutation`` above all, since a permutation
+drawn anew would silently give another model; the masks of the masked
+autoregressive nets and the LU layers' ``l_mask``. Every leaf on both sides
+must be matched, in shape, or this raises.
 
 The FID's feature extractors come across too: ``proxy_weights_from_jax``
 gives the port's random-conv proxy the JAX package's three conv weights, and
 ``inception_from_npz`` loads the JAX package's InceptionV3 ``.npz`` into the
 port's network, validated first.
 """
+
+import re
 
 import numpy as np
 import torch
@@ -38,8 +45,11 @@ def flatten_tree(tree, prefix=""):
 
 
 def jax_path(torch_name):
-    """The JAX tree path of a port parameter or buffer name."""
-    return torch_name.replace("coupler.net.", "coupler.")
+    """The JAX tree path of a port parameter or buffer name: a shared
+    coupler's net and a conditional density's coupler (``p_u``, ``q_u``) are
+    their own params in the JAX tree."""
+    name = torch_name.replace("coupler.net.", "coupler.")
+    return re.sub(r"(^|\.)([pq]_u)\.coupler\.", r"\1\2.", name)
 
 
 def variables_from_jax(density, tree):

@@ -6,8 +6,10 @@ Covered: ``dequantization``, ``split``, ``non-square-head`` (exact and
 Hutchinson + CG log-det; the M-flow head with ``m_flow``),
 ``non-square-base``, ``affine``, ``flatten``, ``flip``, ``rand-channel-perm``, ``squeeze``, ``logit``, ``scalar-mult``,
 ``scalar-add``, ``acl`` with alternating-channel, checkerboard and
-split-channel masks, MLP and batchnorm-free ResNet couplers, and the
-standard Gaussian. Any other layer type, mask, net or option raises
+split-channel masks, ``made``, ``linear`` (LU), ``nsf-ar``, and a layer
+with u-channels (``cond-affine``: the CIF ``ELBODensity`` with its p(u|z)
+and q(u|x)), MLP and batchnorm-free ResNet couplers, and the standard
+Gaussian. Any other layer type, mask, net or option raises
 ``NotImplementedError`` naming it.
 
 Weights are drawn from ``generator`` (a ``torch.Generator``, seeded by the
@@ -20,9 +22,13 @@ import numpy as np
 from ..bijections import (
     AffineBijection,
     AlternatingChannelwiseCouplingBijection,
+    AutoregressiveRationalQuadraticSplineBijection,
     Checkerboard2dCouplingBijection,
+    ConditionalAffineBijection,
     FlipBijection,
     LogitBijection,
+    LULinearBijection,
+    MADEBijection,
     RandomChannelwisePermutationBijection,
     ScalarAdditionBijection,
     ScalarMultiplicationBijection,
@@ -34,7 +40,9 @@ from ..couplers import ChunkedSharedCoupler, IndependentCoupler
 from ..densities import (
     BijectionDensity,
     DequantizationDensity,
+    DiagonalGaussianConditionalDensity,
     DiagonalGaussianDensity,
+    ELBODensity,
     ManifoldFlowHeadDensity,
     NonSquareHeadDensity,
     NonSquareTailDensity,
@@ -104,11 +112,36 @@ def get_density_recursive(schema, x_shape, generator):
             generator=generator,
         )
 
-    if layer_config.get("num_u_channels", 0) != 0:
-        raise _later("the CIF u-channel densities (num_u_channels > 0)")
+    return get_bijection_density(layer_config, schema_tail, x_shape, generator)
+
+
+def get_bijection_density(layer_config, schema_tail, x_shape, generator):
+    """The layer's bijection over the rest of the schema: a
+    ``BijectionDensity``, or with u-channels the CIF ``ELBODensity``
+    (factory.py:128-145)."""
     bijection = get_bijection(layer_config, x_shape, generator)
     prior = get_density_recursive(schema_tail, bijection.z_shape, generator)
-    return BijectionDensity(bijection=bijection, prior=prior)
+    num_u_channels = layer_config.get("num_u_channels", 0)
+    if num_u_channels == 0:
+        return BijectionDensity(bijection=bijection, prior=prior)
+    return ELBODensity(
+        bijection=bijection,
+        prior=prior,
+        p_u_density=get_conditional_density(num_u_channels, layer_config["p_coupler"], x_shape, generator),
+        q_u_density=get_conditional_density(num_u_channels, layer_config["q_coupler"], x_shape, generator),
+    )
+
+
+def get_conditional_density(num_u_channels, coupler_config, x_shape, generator):
+    """(factory.py:290-298)"""
+    return DiagonalGaussianConditionalDensity(
+        coupler=get_coupler(
+            input_shape=x_shape,
+            num_channels_per_output=num_u_channels,
+            config=coupler_config,
+            generator=generator,
+        )
+    )
 
 
 def get_bijection(layer_config, x_shape, generator):
@@ -131,10 +164,45 @@ def get_bijection(layer_config, x_shape, generator):
         return AffineBijection(x_shape=x_shape, per_channel=layer_config["per_channel"])
     if ty == "acl":
         return get_acl_bijection(layer_config, x_shape, generator)
+    if ty == "made":
+        assert len(x_shape) == 1
+        return MADEBijection(
+            num_input_channels=x_shape[0],
+            hidden_channels=layer_config["hidden_channels"],
+            activation=get_activation(layer_config["activation"]),
+            generator=generator,
+        )
+    if ty == "cond-affine":
+        return ConditionalAffineBijection(
+            x_shape=x_shape,
+            coupler=get_coupler(
+                input_shape=(layer_config["num_u_channels"], *x_shape[1:]),
+                num_channels_per_output=x_shape[0],
+                config=layer_config["st_coupler"],
+                generator=generator,
+            ),
+        )
+    if ty == "linear":
+        assert len(x_shape) == 1
+        return LULinearBijection(num_input_channels=x_shape[0], generator=generator)
+    if ty == "nsf-ar":
+        assert len(x_shape) == 1
+        return AutoregressiveRationalQuadraticSplineBijection(
+            num_input_channels=x_shape[0],
+            num_hidden_layers=layer_config["num_hidden_layers"],
+            num_hidden_channels=layer_config["num_hidden_channels"],
+            num_bins=layer_config["num_bins"],
+            tail_bound=layer_config["tail_bound"],
+            activation=get_activation(layer_config["activation"]),
+            dropout_probability=layer_config["dropout_probability"],
+            generator=generator,
+        )
     raise _later(f"layer type `{ty}'")
 
 
 def get_acl_bijection(config, x_shape, generator):
+    if config.get("num_u_channels", 0) > 0:
+        raise _later("the acl layer with u-channels")
     num_x_channels = x_shape[0]
     if config["mask_type"] == "checkerboard":
         return Checkerboard2dCouplingBijection(

@@ -1,3 +1,3 @@
-from .core import MLP, Conv, Dense, ResNet, get_activation
+from .core import MLP, AutoregressiveMLP, Conv, Dense, ResNet, get_activation
 
-__all__ = ["MLP", "Conv", "Dense", "ResNet", "get_activation"]
+__all__ = ["MLP", "AutoregressiveMLP", "Conv", "Dense", "ResNet", "get_activation"]

@@ -1,5 +1,6 @@
-"""Coupler networks (``cmf_tpu/nets/core.py`` in torch): the flat MLP and
-the batchnorm-free conv ResNet.
+"""Coupler networks (``cmf_tpu/nets/core.py`` in torch): the flat MLP, the
+masked autoregressive MLP of MADE and the AR spline, and the batchnorm-free
+conv ResNet.
 
 Weights keep the JAX package's layouts, so JAX weights load with no
 transposes (``interop.py``): dense ``w`` of shape (in, out) applied as
@@ -67,6 +68,56 @@ class MLP(nn.Module):
             if i < len(self.layers) - 1:
                 x = self.activation(x)
         return x
+
+
+class _Buffers(nn.Module):
+    """A list of persistent buffers named ``0``, ``1``, ..., so a state
+    list of the JAX package (``masks``) keeps its dotted paths."""
+
+    def __init__(self, tensors):
+        super().__init__()
+        for i, t in enumerate(tensors):
+            self.register_buffer(str(i), t)
+
+    def __getitem__(self, i):
+        return getattr(self, str(i))
+
+    def __len__(self):
+        return len(self._buffers)
+
+
+class AutoregressiveMLP(nn.Module):
+    """MADE-style masked MLP with ``num_output_heads`` stacked output heads
+    (nets/core.py:335-374). Output shape (B, heads, D). The degrees and
+    masks are exactly the JAX package's; the masks are persistent buffers
+    (its ``state``), applied to the weights at every pass."""
+
+    def __init__(self, n_in, hidden, num_output_heads, activation, generator=None):
+        super().__init__()
+        assert n_in >= 2
+        assert all(n_in <= h for h in hidden), "Random degree init not implemented"
+        self.n_in = n_in
+        self.hidden = list(hidden)
+        self.heads = num_output_heads
+        self.activation = activation
+        degrees = [np.arange(1, n_in + 1)]
+        for h in self.hidden:
+            degrees.append(np.arange(h) % (n_in - 1) + 1)
+        degrees.append(np.tile(np.arange(n_in), num_output_heads))
+        masks = [
+            (degrees[i + 1][:, None] >= degrees[i][None, :]).astype(np.float32).T
+            for i in range(len(degrees) - 1)
+        ]  # (n_in_i, n_out_i), input-major to match x @ w
+        self.layers = nn.ModuleList(Dense(m.shape[0], m.shape[1], generator) for m in masks)
+        self.masks = _Buffers([torch.as_tensor(m) for m in masks])
+
+    def forward(self, x):
+        out = x
+        for i, layer in enumerate(self.layers):
+            out = out @ (layer.w * self.masks[i]) + layer.b
+            if i < len(self.layers) - 1:
+                out = self.activation(out)
+        return out.reshape(x.shape[0], self.heads, self.n_in)
 
 
 def _uniform(shape, bound, generator):

@@ -52,10 +52,46 @@ def _later(what):
     return NotImplementedError(f"{what} waits for a later slice of the port")
 
 
+# Layer types of the JAX package's schemas that the port does not build yet
+# (ROADMAP module 8; batch-norm and its passthrough wrapper are module 6).
+WAITING_LAYERS = ("batch-norm", "passthrough-before-eval", "sos", "bnaf", "planar", "cond-planar",
+                  "nsf-c", "invconv")
+_COUPLER_KEYS = ("coupler", "st_coupler", "p_coupler", "q_coupler")
+
+
+def _coupler_nets(layer):
+    """The net configs of every coupler of a schema layer."""
+    for key in _COUPLER_KEYS:
+        coupler = layer.get(key)
+        if coupler is not None:
+            names = ("shift_net", "log_scale_net") if coupler["independent_nets"] else ("shift_log_scale_net",)
+            yield from (coupler[n] for n in names)
+
+
+def check_schema(schema):
+    """Raise naming every layer type of ``schema`` that waits for a later
+    slice (in ``WAITING_LAYERS``' order), else the first layer option or
+    coupler net that does."""
+    types = {layer["type"] for layer in schema}
+    waiting = [f"`{ty}'" for ty in WAITING_LAYERS if ty in types]
+    if len(waiting) == 1:
+        raise _later(f"the {waiting[0]} layer")
+    if waiting:
+        raise NotImplementedError(f"the {', '.join(waiting)} layers wait for a later slice of the port")
+    for layer in schema:
+        ty = layer["type"]
+        if ty == "acl" and layer.get("num_u_channels", 0) > 0:
+            raise _later("the `acl' layer with u-channels")
+        for net in _coupler_nets(layer):
+            if net["type"] not in ("mlp", "resnet"):
+                raise _later(f"the `{net['type']}' coupler net")
+            if net["type"] == "resnet" and net.get("batchnorm", True):
+                raise _later("the ResNet coupler with batch-norm (ROADMAP module 6)")
+
+
 def check_supported(config, write_to_disk=True):
     """Raise for every config entry that asks for what the port lacks."""
-    if not config.get("non_square", False):
-        raise _later("training a square flow (ROADMAP module 8)")
+    check_schema(get_schema(config))
     if config.get("compute_dtype", "float32") != "float32":
         raise _later(f"compute_dtype `{config['compute_dtype']}' (ROADMAP module 7)")
     if write_to_disk and not config.get("nosave", False):
@@ -130,6 +166,24 @@ def elbo_loss_fns(config):
     return valid_loss_fn, test_metrics_fn
 
 
+def square_loss_fns(config):
+    """The validation and test closures of a square flow
+    (experiment.py:230-238): validation is −log-prob of ``metrics`` over
+    ``num_valid_elbo_samples``, the test is ``metrics`` over
+    ``num_test_elbo_samples``. On a FID dataset with ``use_fid`` the FID
+    takes validation's place."""
+    num_valid = config["num_valid_elbo_samples"]
+    num_test = config["num_test_elbo_samples"]
+
+    def valid_loss_fn(density, x, generator=None):
+        return -metrics(density, x, num_valid, generator=generator)["log-prob"]
+
+    def test_metrics_fn(density, x, generator=None):
+        return metrics(density, x, num_test, generator=generator)
+
+    return valid_loss_fn, test_metrics_fn
+
+
 def _make_writer(config, resume_dir, write_to_disk):
     if write_to_disk and not config.get("nosave", False):
         if resume_dir is None:
@@ -174,8 +228,10 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     writer = _make_writer(config, resume_dir, write_to_disk)
     visualizer = viz.get_visualizer(config, writer, train_data=train_loader.x)
 
-    # Loss closures (experiment.py:211-231).
-    if config["dataset"] in FID_DATASETS:
+    # Loss closures (experiment.py:211-238).
+    if not config.get("non_square", False):
+        valid_loss_fn, test_metrics_fn = square_loss_fns(config)
+    elif config["dataset"] in FID_DATASETS:
         valid_loss_fn, test_metrics_fn = _zero_losses, _zero_test_metrics
     else:
         valid_loss_fn, test_metrics_fn = elbo_loss_fns(config)

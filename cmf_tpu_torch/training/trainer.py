@@ -14,10 +14,16 @@ the host: its losses stay on the device until the epoch ends, when one read
 fills ``history`` and the epoch raises ``FloatingPointError`` if any loss
 was not finite (trainer.py:296-302).
 
+The root is a non-square chain under ``NonSquareObjective``, or a square
+flow (``BijectionDensity``) or a CIF (``ELBODensity``) under
+``SquareObjective``, whose flags never change: one optimizer, one key.
+
 Two routes run that one step function. On a CUDA device, where the density
 says its step can run in a graph (``Density.step_capturable``: the exact,
-Cholesky, log-det or the M-flow step's none, no host read and no random
-draw), the step is captured in a CUDA graph per flag key (``_get_step``,
+Cholesky, log-det or the M-flow step's none, a square flow, no host read;
+no random draw, or only the CIF's u, drawn from the trainer's generator,
+which is then registered with every graph the trainer captures, so each
+replay draws afresh), the step is captured in a CUDA graph per flag key (``_get_step``,
 trainer.py:178-200; the key holds the optimizer index), all graphs in one
 memory pool: the counterpart of the jitted, scanned epoch. A key's first
 step runs eagerly on the capture stream (it builds the kernels and warms
@@ -61,6 +67,7 @@ from contextlib import contextmanager
 
 import torch
 
+from ..densities import ELBODensity
 from ..densities.nonsquare import logdet_fallbacks
 from .checkpoint import make_checkpoint, restore_checkpoint
 from .writer import DummyWriter
@@ -200,14 +207,15 @@ class Trainer:
         self._likelihood_wt = torch.zeros((), device=device)
         self._metric_wt = torch.zeros((), device=device)
         self.captured = device.type == "cuda" and density.step_capturable
+        # A captured step that draws (the CIF's u) draws from this generator.
+        self._graph_generator = any(isinstance(m, ELBODensity) for m in density.modules())
         # flag key and batch shape → None after the key's eager first step,
         # then its _CapturedStep.
         self.graphs = {}
         if self.captured:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(device)
-            print("train step: captured, one CUDA graph replay a step (exact log-det on the card)",
-                  flush=True)
+            print("train step: captured, one CUDA graph replay a step", flush=True)
         else:
             why = "the CPU" if device.type != "cuda" else "the step reads the host or draws noise"
             print(f"train step: eager ({why})", flush=True)
@@ -322,6 +330,8 @@ class Trainer:
         takes the step."""
         static_x = x.clone()
         graph = torch.cuda.CUDAGraph()
+        if self._graph_generator:
+            graph.register_generator_state(self.generator)
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
             out = torch.stack(self._step_fn(static_x, flags))
         return _CapturedStep(graph, static_x, out)

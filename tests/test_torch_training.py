@@ -17,6 +17,7 @@ from cmf_tpu_torch.data import ArrayLoader, get_loaders
 from cmf_tpu_torch.main import main
 from cmf_tpu_torch.interop import flatten_tree
 from cmf_tpu_torch.training import Trainer, check_supported, get_objective, make_optimizer
+from cmf_tpu_torch.training.experiment import check_schema
 
 from _torch_parity import (
     batch,
@@ -117,39 +118,74 @@ def test_get_loaders_matches_with_dataset_cap():
     assert ours[0].num_examples == 500
 
 
+def _flagship(**overrides):
+    return {**small_config(), "model": "non-square", "dataset": "miniboone", **overrides}
+
+
+def _published(model, dataset="miniboone", baseline=False, **overrides):
+    config = expand_grid(get_config(dataset, model, use_baseline=baseline))[0]
+    return {**config, "model": model, "dataset": dataset, **overrides}
+
+
 _PORTED = [
-    ({"dataset": "mnist", "test_metric": True}, "dataset-mnist-test_metric-True"),
-    ({"dataset": "mnist", "test_center": True}, "dataset-mnist-test_center-True"),
-    ({"m_flow": True}, "m_flow-True"),
-    ({"lr_schedule": "cosine"}, "lr_schedule-cosine"),
-    ({"max_grad_norm": 1.0}, "max_grad_norm-1.0"),
-    ({"opt": "adamax"}, "opt-adamax"),
+    (lambda: _flagship(dataset="mnist", test_metric=True), "dataset-mnist-test_metric-True"),
+    (lambda: _flagship(dataset="mnist", test_center=True), "dataset-mnist-test_center-True"),
+    (lambda: _flagship(m_flow=True), "m_flow-True"),
+    (lambda: _flagship(lr_schedule="cosine"), "lr_schedule-cosine"),
+    (lambda: _flagship(max_grad_norm=1.0), "max_grad_norm-1.0"),
+    (lambda: _flagship(opt="adamax"), "opt-adamax"),
+    (lambda: _published("maf"), "maf-miniboone"),
+    (lambda: _published("nsf-ar", baseline=True), "nsf-ar-miniboone-baseline"),
+    (lambda: _published("nsf-ar"), "nsf-ar-miniboone"),
+    (lambda: _published("cond-affine"), "cond-affine-miniboone"),
 ]
+# (config, id, what the refusal must name): one case per layer type that
+# waits, each from a published config that has it.
 _UNPORTED = [
-    ({"checkpoint_backend": "orbax"}, "checkpoint_backend-orbax"),
-    ({"compute_dtype": "bfloat16"}, "compute_dtype-bfloat16"),
+    (lambda: _flagship(checkpoint_backend="orbax"), "checkpoint_backend-orbax", "JAX package's backend"),
+    (lambda: _flagship(compute_dtype="bfloat16"), "compute_dtype-bfloat16", "compute_dtype"),
+    (lambda: _published("realnvp", baseline=True), "realnvp-miniboone-baseline", "`batch-norm'"),
+    (lambda: _published("maf", baseline=True), "maf-miniboone-baseline", "`passthrough-before-eval'"),
+    (lambda: _published("sos", baseline=True), "sos-miniboone-baseline", "`sos'"),
+    (lambda: _published("bnaf", "2uniforms"), "bnaf-2uniforms", "`bnaf'"),
+    (lambda: _published("planar", "2uniforms", baseline=True), "planar-2uniforms-baseline", "`planar'"),
+    (lambda: _published("planar", "2uniforms"), "planar-2uniforms", "`cond-planar'"),
+    (lambda: _published("nsf-ar", baseline=True, autoregressive=False), "nsf-c-miniboone-baseline", "`nsf-c'"),
+    (lambda: _published("glow", "mnist"), "glow-mnist", "`invconv'"),
+    (lambda: _published("realnvp", "mnist"), "realnvp-mnist", "ResNet coupler with batch-norm"),
 ]
 
 
-@pytest.mark.parametrize("overrides", [o for o, _ in _UNPORTED], ids=[i for _, i in _UNPORTED])
-def test_unported_config_raises(overrides):
+@pytest.mark.parametrize("make, match", [(m, w) for m, _, w in _UNPORTED], ids=[i for _, i, _ in _UNPORTED])
+def test_unported_config_raises(make, match):
     """The flagship's published defaults pass (a run dir, early stopping,
-    FID), and so do mnist's. Still refused: the orbax checkpoint backend
-    and bfloat16 compute."""
-    config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
+    FID), and so do mnist's. Still refused, naming what waits: the orbax
+    checkpoint backend, bfloat16 compute, and each layer type of the JAX
+    package's factory that the port does not build yet."""
+    config = _flagship()
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)
     check_supported({**config, "dataset": "mnist"})
-    with pytest.raises(NotImplementedError, match="later slice|JAX package's backend"):
-        check_supported({**config, **overrides})
+    with pytest.raises(NotImplementedError, match="later slice|JAX package's backend") as raised:
+        check_supported(make())
+    assert match in str(raised.value)
 
 
-@pytest.mark.parametrize("overrides", [o for o, _ in _PORTED], ids=[i for _, i in _PORTED])
-def test_ported_config_passes(overrides):
+def test_acl_with_u_channels_is_refused():
+    """No published config gives an affine coupling u-channels; a schema
+    that does is refused by name."""
+    schema = small_schema()
+    schema = [{**layer, "num_u_channels": 2} if layer["type"] == "acl" else layer for layer in schema]
+    with pytest.raises(NotImplementedError, match="`acl' layer with u-channels"):
+        check_schema(schema)
+
+
+@pytest.mark.parametrize("make", [m for m, _ in _PORTED], ids=[i for _, i in _PORTED])
+def test_ported_config_passes(make):
     """mnist's metric and centering analyses into a run dir (matplotlib
-    imports here), the M-flow baseline and the optimizer options."""
-    config = {**small_config(), "model": "non-square", "dataset": "miniboone"}
-    check_supported({**config, **overrides})
+    imports here), the M-flow baseline, the optimizer options, and the
+    tabular square NSF and CIFs with their published settings."""
+    check_supported(make())
 
 
 def test_mnist_published_defaults_pass():

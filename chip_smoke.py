@@ -169,6 +169,33 @@ Phases, each of which fails the run on its own failure:
                   profiler (not the CIF NSF's: its inverse is the square
                   NSF's); the spline knots' running sum by ``torch.cumsum``
                   against the port's triangular product.
+19. image-square -- the image square flows and image CIFs at their published
+                  widths and depths: ``--dataset mnist --model realnvp`` with
+                  and without ``--baseline`` (batch-norm ResNet couplers),
+                  ``--dataset cifar10 --model glow --baseline`` and
+                  ``--dataset mnist --model glow`` (LU invconvs, GlowCNN),
+                  after the image grid's refusal of a run dir on a card
+                  without matplotlib and each ``--print-num-params``
+                  against the published count: each under ``--nosave`` for
+                  one epoch of 3 steps at the published batch (FID on
+                  1,000 samples; glow at lr 1e-6, after one epoch at its
+                  published 5e-4, whose second step's loss is not finite
+                  in either package: the freeze and the raise checked),
+                  with no Gram/log-det or coupler launch
+                  over the runs; each trainer saved, restored into a fresh
+                  setup (every tensor bit-equal, the batch-norm running
+                  statistics among them), trained a second epoch and tested
+                  (``Trainer.test()``, as ``--test`` runs it); ms an eager
+                  step by the host clock and by CUDA events, one step's
+                  device ops, busy ms and idle share, ms a FID pass,
+                  ``sample(n)`` at the test chunk under the profiler; a card
+                  step at batch 8 against the CPU's from the same weights
+                  and draws: in fp64 the loss within 1e-4 and every
+                  gradient within 1e-3 of max |grad|; in fp32 the loss
+                  within 1e-4 and the running statistics within 1e-5 (a
+                  batch-norm network's fp32 gradients at batch 8 are
+                  further than 1e-3 apart on any two devices: each side's
+                  are held within 0.2 of the fp64 step's max |grad|).
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -410,6 +437,44 @@ SQUARE_CIF_RUNS = [
     ("nsf-ar", ["--model", "nsf-ar"], 192, 2, 1),
     ("cond-affine", ["--model", "cond-affine"], 3000, 1, 2),
 ]
+# The image square flows and image CIFs: the four published commands at
+# their widths and depths (``config/defaults/images.py``): (tag, CLI
+# arguments, rows of every split, the published parameter count). Each runs
+# under --nosave (the card has no matplotlib for the image grid a run dir
+# draws) for one epoch of 3 steps at the published batch (100 for realnvp,
+# 64 for glow), the FID cut to IMAGE_SQUARE_FID_SAMPLES samples (published
+# 10,000).
+IMAGE_SQUARE_RUNS = [
+    ("realnvp mnist --baseline", ["--model", "realnvp", "--dataset", "mnist", "--baseline"], 300, 5_932_070),
+    ("realnvp mnist", ["--model", "realnvp", "--dataset", "mnist"], 300, 5_988_872),
+    ("glow cifar10 --baseline", ["--model", "glow", "--dataset", "cifar10", "--baseline"], 192, 44_312_832),
+    ("glow mnist", ["--model", "glow", "--dataset", "mnist"], 192, 9_731_584),
+]
+IMAGE_SQUARE_FID_SAMPLES = 500
+# glow's published rate (adamax, 5e-4) does not survive its second step on
+# the synthetic stand-in, in either package: the first adamax step moves
+# every weight by ±lr, the zero-initialised output convs of every coupling
+# among them, and the second step's loss leaves fp32's range at full width
+# (``tests/_glow_rate_probe.py`` prints both packages' losses from the same
+# weights at a cut width: a jump of five orders of magnitude in each). The
+# phase holds the port to that at the published rate (the freeze keeps the
+# first step's state, the epoch raises), then trains glow at this rate.
+GLOW_SMOKE_LR = 1e-6
+# The card step against the CPU's: batch 8, as the parity tests hold the
+# port to cmf_tpu on the CPU; then every running statistic, max |diff| over
+# max |ref| per tensor (one fp32 mean and variance update of a batch).
+IMAGE_SQUARE_STEP_BATCH = 8
+BN_STATE_TOL = 1e-5
+# The gradients of a batch-norm network at batch 8 are ill-conditioned in
+# fp32: its backward subtracts the batch means of the incoming gradient, and
+# a conv weight's gradient is what is left of sums that cancel. On the
+# realnvp models an fp32 step lands up to 1.3e-2 (the CPU) and 3.7e-2 (the
+# card, whose cuDNN wgrad sums in a varying order) of max |grad| from the
+# fp64 step, and varies from run to run. So the card is held to the CPU in
+# fp64, where both compute the same function to ~1e-12, at STEP_LOSS_TOL and
+# STEP_GRAD_TOL; in fp32, the loss at STEP_LOSS_TOL and each side's
+# gradients within this of the fp64 step's max |grad|.
+FP32_BN_GRAD_TOL = 0.2
 # The runs whose sample(5000) the phase profiles: the CIF NSF inverts through
 # the square NSF's AR splines, and a profile of its ~48,000 ops costs seconds.
 SQUARE_CIF_SAMPLE_PROFILED = ("maf", "nsf-ar --baseline", "cond-affine")
@@ -876,30 +941,40 @@ def trace_events(prof):
             return json.load(f).get("traceEvents", [])
 
 
-def device_union_and_span(prof):
-    """The union of a trace's device intervals (kernels, copies, fills) and
-    their span (first start to last end), in µs; (0, 0) for none."""
-    intervals = sorted(
-        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+def device_events(prof):
+    """(start µs, end µs, name) of a trace's device-side events: kernels,
+    copies and fills. An aten op's own device time would count its kernels a
+    second time, and so would the spans on the device timeline named after
+    a host region (the optimizer's step and zero_grad), which overlap the
+    kernels they hold."""
+    return sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e.get("name", ""))
         for e in trace_events(prof)
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
     )
-    if not intervals:
+
+
+def device_union_and_span(events):
+    """The union of ``device_events`` intervals and their span (first start
+    to last end), in µs; (0, 0) for none."""
+    if not events:
         return 0.0, 0.0
-    union, (cur_start, cur_end) = 0.0, intervals[0]
-    for start, end in intervals[1:]:
+    union, (cur_start, cur_end, _) = 0.0, events[0]
+    for start, end, _ in events[1:]:
         if start > cur_end:
             union += cur_end - cur_start
             cur_start = start
         cur_end = max(cur_end, end)
     union += cur_end - cur_start
-    return union, max(end for _, end in intervals) - intervals[0][0]
+    return union, max(end for _, end, _ in events) - events[0][0]
 
 
 def profile_steps(step, x, flags, n_steps, tag, route="", unit="step"):
     """Where a step's (a ``unit``'s) device time goes, under torch.profiler,
     and the device's idle share from the same trace: one less the union of
-    the device intervals over their span."""
+    the device intervals over their span. Summed from the trace's device
+    events by name (``key_averages`` of a step of ~30,000 ops takes tens of
+    seconds on the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -909,23 +984,15 @@ def profile_steps(step, x, flags, n_steps, tag, route="", unit="step"):
             step(x, flags)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # Device-side events only (kernels, copies, fills): an aten op's own
-    # device time would count its kernels a second time, and so would the
-    # spans on the device timeline named after a host region (the
-    # optimizer's step and zero_grad), which overlap the kernels they hold.
-    averages = prof.key_averages()
-    host_keys = {e.key for e in averages if e.device_type == torch.autograd.DeviceType.CPU}
-    rows = sorted(
-        (
-            (getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)), e.key, e.count)
-            for e in averages
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host_keys
-        ),
-        reverse=True,
-    )
+    events = device_events(prof)
+    by_name = {}
+    for start, end, name in events:
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - start, count + 1)
+    rows = sorted(((total, name, count) for name, (total, count) in by_name.items()), reverse=True)
     busy = sum(r[0] for r in rows)
-    ops = sum(r[2] for r in rows) // n_steps
-    union, span = device_union_and_span(prof)
+    ops = len(events) // n_steps
+    union, span = device_union_and_span(events)
     if busy and span:
         units = unit + ("es" if unit.endswith("s") else "s")
         print(f"[{tag}] {route}profile of {n_steps} {units}: {ops} device ops/{unit}, busy "
@@ -2624,6 +2691,275 @@ def phase_square_cif(smi, root):
     print(f"[square-cif] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+def image_square_argv(model_args, rows, epochs):
+    rate = ["--config", f"lr={GLOW_SMOKE_LR}"] if "glow" in model_args else []
+    return model_args + rate + ["--synthetic-data", "--nosave", "--config", f"max_dataset_size={rows}",
+                                "--config", f"max_epochs={epochs}", "--config",
+                                f"num_fid_samples={IMAGE_SQUARE_FID_SAMPLES}", "--config", "seed=0"]
+
+
+def glow_published_rate(tag, model_args):
+    """One epoch of 2 steps at glow's published rate: the first step's loss
+    finite, the second's not; the freeze keeps the first step's state (the
+    optimizer's count stays 1, every parameter finite) and the epoch
+    raises, as cmf_tpu's trainer does."""
+    import torch
+    from cmf_tpu_torch.config import expand_grid, get_config
+    from cmf_tpu_torch.training import experiment
+
+    dataset = model_args[model_args.index("--dataset") + 1]
+    config = expand_grid(get_config(dataset, "glow", use_baseline="--baseline" in model_args))[0]
+    config = {**config, "model": "glow", "dataset": dataset, "synthetic_data": True, "nosave": True,
+              "max_dataset_size": 2 * config["train_batch_size"], "max_epochs": 1, "seed": 0}
+    t0 = time.perf_counter()
+    trainer = experiment.setup_experiment(config, write_to_disk=False)["trainer"]
+    try:
+        trainer.train()
+        raised = None
+    except FloatingPointError as e:
+        raised = e
+    losses = [h[1] for h in trainer.history]
+    count = int(trainer.optimizers[0].count)
+    finite = all(bool(torch.isfinite(p).all()) for p in trainer.params)
+    print(f"[image-square] {tag} at the published rate ({config['opt']} {config['lr']:g}): losses {losses}; "
+          f"raised {raised!r}; optimizer count {count}, parameters finite {finite}; {time.perf_counter() - t0:.2f} s")
+    assert math.isfinite(losses[0]) and not math.isfinite(losses[1]), f"{tag}: the published rate's steps"
+    assert raised is not None and count == 1 and finite, f"{tag}: the freeze did not keep the first step"
+
+
+def image_square_draws(density, x, gen, num_u):
+    """A step's draws for the card and the CPU alike: the dequantization
+    noise, and each CIF layer's ε of u (outermost first; num_u channels at
+    its input's height and width)."""
+    import torch
+    from cmf_tpu_torch.densities import ELBODensity
+
+    draws = {"dequantization_noise": torch.rand(x.shape, generator=gen, device=x.device)}
+    layers = [m for m in density.modules() if isinstance(m, ELBODensity)]
+    if layers:
+        draws["u_noise"] = [torch.randn(x.shape[0], num_u, *m.bijection.x_shape[1:], generator=gen, device=x.device)
+                            for m in layers]
+    return draws
+
+
+def image_square_card_vs_cpu(setup, x, flags, tag, draws):
+    """One step of batch ``x`` on the card and on the CPU, each in fp32 and
+    in fp64, from the same weights and draws: in fp64 the loss and every
+    gradient card against CPU at STEP_LOSS_TOL and STEP_GRAD_TOL; in fp32
+    the loss card against CPU at STEP_LOSS_TOL, each side's gradients
+    within FP32_BN_GRAD_TOL of the fp64 step, and every running statistic
+    after the step card against CPU within BN_STATE_TOL."""
+    import torch
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.training import elbo_loss
+
+    state = {k: v.detach().cpu().clone() for k, v in setup["density"].state_dict().items()}
+    steps = {}
+    cpu = torch.device("cpu")
+    for label, dev, dtype in (("card32", x.device, torch.float32), ("cpu32", cpu, torch.float32),
+                              ("cpu64", cpu, torch.float64), ("card64", x.device, torch.float64)):
+        if label == "card32":
+            model = setup["density"]
+        else:
+            model = get_density(setup["schema"], x_shape=tuple(x.shape[1:]), device="cpu")
+            model.load_state_dict(state)
+            model.to(dev, dtype)
+        model.zero_grad(set_to_none=True)
+        moved = {k: [t.to(dev, dtype) for t in v] if isinstance(v, list) else v.to(dev, dtype)
+                 for k, v in draws.items()}
+        t0 = time.perf_counter()
+        loss = elbo_loss(model, x.to(dev, dtype), flags, **moved)
+        loss.backward()
+        grads = {n: torch.zeros(p.shape, dtype=torch.float64) if p.grad is None else p.grad.detach().cpu().double()
+                 for n, p in model.named_parameters()}
+        stats = {n: b.detach().cpu().double() for n, b in model.named_buffers() if n.endswith((".mean", ".var"))}
+        steps[label] = (loss.item(), grads, stats, time.perf_counter() - t0)
+    card32, cpu32, card64, cpu64 = (steps[k] for k in ("card32", "cpu32", "card64", "cpu64"))
+    scale = max(float(g.abs().max()) for g in cpu64[1].values())
+
+    def grad_err(step, ref):
+        worst = max(ref[1], key=lambda n: float((step[1][n] - ref[1][n]).abs().max()))
+        return float((step[1][worst] - ref[1][worst]).abs().max()) / scale, worst
+
+    def loss_err(step, ref):
+        return abs(step[0] - ref[0]) / max(1.0, abs(ref[0]))
+
+    (err64, worst64), (err_card, worst_card), (err_cpu, worst_cpu) = (
+        grad_err(card64, cpu64), grad_err(card32, cpu64), grad_err(cpu32, cpu64))
+    loss64, loss32 = loss_err(card64, cpu64), loss_err(card32, cpu32)
+    state_err = max_rel_diff([card32[2][n] for n in cpu32[2]], [cpu32[2][n] for n in cpu32[2]])
+    print(f"[{tag}] card vs CPU step (batch {x.shape[0]}; fp32 {card32[3]:.2f} s card, {cpu32[3]:.2f} s CPU; fp64 "
+          f"{card64[3]:.2f} s card, {cpu64[3]:.2f} s CPU): fp64 loss rel err {loss64:.3e}, max grad err / max |grad| "
+          f"{err64:.3e} (worst `{worst64}'; tols {STEP_LOSS_TOL:g}, {STEP_GRAD_TOL:g}); fp32 loss {card32[0]:.8g} vs "
+          f"{cpu32[0]:.8g}, rel err {loss32:.3e}; fp32 gradients from the fp64 step's: card {err_card:.3e} (worst "
+          f"`{worst_card}'), CPU {err_cpu:.3e} (worst `{worst_cpu}'), tol {FP32_BN_GRAD_TOL:g}; running statistics "
+          f"card vs CPU {state_err:.3e} (tol {BN_STATE_TOL:g}) over {len(cpu32[2])} tensors")
+    assert loss64 <= STEP_LOSS_TOL and err64 <= STEP_GRAD_TOL, f"{tag}: the card's fp64 step disagrees with the CPU's"
+    assert loss32 <= STEP_LOSS_TOL, f"{tag}: the card's fp32 loss disagrees with the CPU's"
+    assert max(err_card, err_cpu) <= FP32_BN_GRAD_TOL, f"{tag}: an fp32 step's gradients are far from the fp64 step"
+    assert cpu32[2] and state_err <= BN_STATE_TOL, f"{tag}: running statistics on the card disagree with the CPU"
+
+
+def image_square_restore(tag, setup, run_dir):
+    """The trainer saved into ``run_dir``, restored into a fresh setup
+    (every tensor bit-equal, the running statistics among them), trained a
+    second epoch, then tested as ``--test`` tests."""
+    import torch
+    from cmf_tpu_torch.training import experiment
+    from cmf_tpu_torch.training.checkpoint import make_checkpoint
+    from cmf_tpu_torch.training.writer import Writer
+
+    trainer = setup["trainer"]
+    trainer.writer = Writer(run_dir, make_subdir=False, tee=False)
+    trainer._save_checkpoint("latest")
+    save_ms = trainer.timings["checkpoint"][1] * 1e3
+    saved = torch.load(os.path.join(run_dir, "checkpoints", "latest.pt"), weights_only=True)
+    setup_r = experiment.setup_experiment({**setup["config"], "max_epochs": 2}, resume_dir=run_dir,
+                                          write_to_disk=False)
+    trainer_r = setup_r["trainer"]
+    loaded = make_checkpoint(trainer_r)
+    tensors = [(s, k) for s in ("params", "model_state", "opt_states") for k in saved[s]]
+    stats = [k for k in saved["model_state"] if k.endswith((".mean", ".var"))]
+    same = all(torch.equal(loaded[s][k], saved[s][k]) for s, k in tensors)
+    print(f"[image-square] {tag}: saved in {save_ms:.4f} ms; restored from `{trainer_r.restored_from}' after "
+          f"epoch {saved['epoch']}: {len(tensors)} tensors ({len(stats)} running statistics) bit-equal {same}")
+    assert trainer_r.restored_from == "latest" and same and stats, f"{tag}: the restored state differs"
+    trainer_r.train()
+    history_r = trainer_r.history
+    assert [h[0] for h in history_r] == [2] * len(trainer_r.train_loader), f"{tag}: the resumed run"
+    assert all(math.isfinite(h[1]) for h in history_r), f"{tag}: non-finite loss in the resumed run"
+    t0 = time.perf_counter()
+    results = trainer_r.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    shown = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in results.items()}
+    print(f"[image-square] {tag}: epoch 2 trained ({len(history_r)} steps, last loss {history_r[-1][1]:.6g}); "
+          f"Trainer.test() ({setup_r['config']['num_fid_samples']:,} FID samples): "
+          f"{shown}; {test_s:.4f} s")
+    assert {"elbo", "log-prob", "bpd", "fid"} <= set(results), f"{tag}: the test lacks a metric"
+    assert all(math.isfinite(v) for k, v in results.items() if k != "feature_extractor"), f"{tag}: non-finite test"
+
+
+def phase_image_square(smi, root):
+    """The image square flows and image CIFs on the card: the four
+    published commands at their widths and depths under --nosave, no
+    Gram/log-det or coupler launch over them; each saved and restored
+    bit-equal, trained on and tested; its step, FID pass and sample timed;
+    a card step against the CPU with the running statistics."""
+    import contextlib
+    import io
+
+    import torch
+    from cmf_tpu_torch.config import expand_grid, get_config
+    from cmf_tpu_torch.densities import ELBODensity
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.nets import BatchNorm2d, GlowCNN
+    from cmf_tpu_torch.bijections import LUInvertible1x1ConvBijection
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.training import experiment
+
+    phase_t0 = time.perf_counter()
+    # A run dir of an image model draws the image grid: refused by name
+    # before any work where matplotlib does not import.
+    tag0, args0, _, _ = IMAGE_SQUARE_RUNS[0]
+    config0 = expand_grid(get_config("mnist", "realnvp", use_baseline=True))[0]
+    config0 = {**config0, "model": "realnvp", "dataset": "mnist"}
+    try:
+        experiment.check_supported(config0)
+        print("[image-square] matplotlib imports here: a run dir would draw the image grid")
+    except ImportError as refusal:
+        print(f"[image-square] {tag0} into a run dir is refused before any work: {refusal}")
+        assert "ImageDensityVisualizer" in str(refusal)
+
+    for tag, model_args, _, count in IMAGE_SQUARE_RUNS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_main(model_args + ["--synthetic-data", "--print-num-params"])
+        print(f"[image-square] {tag} --print-num-params: {out.getvalue().strip()} (published {count:,})")
+        assert out.getvalue() == f"Number of parameters: {count}\n", f"{tag}: parameter count"
+
+    print(f"[image-square] the refusal and the parameter counts took {time.perf_counter() - phase_t0:.2f} s")
+    runs = []
+    # The main path: the counts are read right after it.
+    with _Recorded() as rec:
+        gl.reset_launch_counts()
+        cs.reset_launch_counts()
+        for tag, model_args, rows, _ in IMAGE_SQUARE_RUNS:
+            start = len(rec.rows)
+            t0 = time.perf_counter()
+            (setup,) = cli_main(image_square_argv(model_args, rows, 1))
+            torch.cuda.synchronize()
+            runs.append((tag, setup, time.perf_counter() - t0, rec.rows[start:]))
+            if "glow" in model_args:
+                glow_published_rate(tag, model_args)
+        torch.cuda.synchronize()
+        launches = gl.launch_counts(), cs.LAUNCHES
+    print(f"[image-square] Gram/log-det launches (fwd, bwd) {launches[0]} and coupler launches {launches[1]} "
+          f"over the {len(runs)} runs")
+    assert launches == ((0, 0), 0), "a kernel launched on the image square and CIF runs"
+
+    for i, (tag, setup, seconds, rows) in enumerate(runs):
+        trainer, density, config = setup["trainer"], setup["density"], setup["config"]
+        history = trainer.history
+        scalars = {}
+        for name, value, step in rows:
+            scalars.setdefault(name, {})[step] = value
+        valid, test_fid = scalars.get("valid/loss", {}), scalars.get("test/fid", {})
+        norms = [m for m in density.modules() if isinstance(m, BatchNorm2d)]
+        moving = [m for m in norms if m.updates_running]
+        moved = sum(1 for m in moving if not torch.equal(m.var, torch.ones_like(m.var)))
+        kept = all(torch.equal(m.var, torch.ones_like(m.var)) and not m.mean.any()
+                   for m in norms if not m.updates_running)
+        cif_layers = sum(isinstance(m, ELBODensity) for m in density.modules())
+        fid_n, fid_s = trainer.timings["fid"]
+        train_s = trainer.timings["train"][1]
+        print(f"[image-square] {tag}: {cif_layers} CIF layers, {len(norms)} batch-norm layers ({len(moving)} "
+              f"moving their statistics, {moved} moved; p's and q's kept {kept}), "
+              f"{sum(isinstance(m, GlowCNN) for m in density.modules())} GlowCNNs, "
+              f"{sum(isinstance(m, LUInvertible1x1ConvBijection) for m in density.modules())} LU invconvs; "
+              f"batch {config['train_batch_size']}, {config['opt']} lr {config['lr']:g}, weight decay "
+              f"{config['weight_decay']:g}; {len(history)} steps, losses {history[0][1]:.6g} -> "
+              f"{history[-1][1]:.6g}; route {'captured' if trainer.captured else 'eager'}; valid/loss (FID) at "
+              f"{sorted(valid)}: {list(valid.values())}; test/fid at {sorted(test_fid)}: {list(test_fid.values())}")
+        print(f"[image-square] {tag} {smi}: the run took {seconds:.4f} s; {fid_n} FID pass(es) of "
+              f"{config['num_fid_samples']:,} samples, {fid_s / fid_n * 1e3:.4f} ms each; training epochs "
+              f"{train_s:.4f} s, so {1 - train_s / seconds:.4f} of the run outside training steps (host clock)")
+        assert all(math.isfinite(h[1]) for h in history), f"{tag}: non-finite training loss"
+        assert len(history) == len(trainer.train_loader) >= 3, f"{tag}: not one epoch of 3 steps"
+        assert not trainer.captured and not density.step_capturable, f"{tag}: the dequantized step is eager"
+        assert moving and moved == len(moving) and kept, f"{tag}: the running statistics"
+        assert sorted(valid) == ([1] if config["early_stopping"] else []), f"{tag}: validated on other epochs"
+        assert sorted(test_fid) == [1], f"{tag}: no test FID at epoch 1"
+        assert all(math.isfinite(v) for v in list(valid.values()) + list(test_fid.values())), f"{tag}: FID"
+        assert fid_n == len(valid) + 1, f"{tag}: FID passes != validations + tests"
+
+        # Times of this model's step and sample.
+        t_timing = time.perf_counter()
+        flags, x = trainer.objective.for_epoch(1), next(iter(trainer.train_loader))
+        step_time(trainer.eager_step, x, flags, 2, "image-square", f"{tag}, eager: ")
+        events_ms = cuda_ms(lambda: trainer.eager_step(x, flags), iters=2, warmup=0)
+        print(f"[image-square] {smi}: {tag}, eager: {events_ms:.4f} ms per step back to back (CUDA events), "
+              f"{x.shape[0] / events_ms * 1e3:.1f} samples/s")
+        profile_steps(trainer.eager_step, x, flags, 1, "image-square", f"{tag}, eager: ")
+        gen = torch.Generator(device=x.device).manual_seed(7)
+        chunk = config["test_batch_size"]
+        profile_steps(lambda *_: density.sample(chunk, generator=gen), None, None, 1, "image-square",
+                      f"{tag}, sample({chunk}): ", unit="call")
+
+        t_restore = time.perf_counter()
+        image_square_restore(tag, setup, os.path.join(root, f"image_square_{i}"))
+        t_cpu = time.perf_counter()
+
+        x8 = x[:IMAGE_SQUARE_STEP_BATCH]
+        image_square_card_vs_cpu(setup, x8, flags, f"image-square {tag}",
+                                 image_square_draws(density, x8, gen, config["num_u_channels"]))
+        print(f"[image-square] {tag}: the checks after the run took {t_restore - t_timing:.2f} s (times and "
+              f"profiles), {t_cpu - t_restore:.2f} s (save, restore, an epoch, the test), "
+              f"{time.perf_counter() - t_cpu:.2f} s (card against CPU)")
+    print(f"[image-square] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -2662,6 +2998,7 @@ def main():
         timed("metric-mnist", phase_metric_mnist, setup, default_run_dir, root, smi)
         timed("mflow", phase_mflow, smi, root)
         timed("square-cif", phase_square_cif, smi, root)
+        timed("image-square", phase_image_square, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

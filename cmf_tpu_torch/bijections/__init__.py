@@ -6,7 +6,11 @@ from .coupling import (
     SplitChannelwiseCouplingBijection,
 )
 from .elementwise import LogitBijection, ScalarAdditionBijection, ScalarMultiplicationBijection
-from .linear import LULinearBijection
+from .linear import (
+    BruteForceInvertible1x1ConvBijection,
+    LUInvertible1x1ConvBijection,
+    LULinearBijection,
+)
 from .made import MADEBijection
 from .reshaping import (
     FlipBijection,
@@ -20,6 +24,8 @@ __all__ = [
     "AffineBijection",
     "AutoregressiveRationalQuadraticSplineBijection",
     "ConditionalAffineBijection",
+    "BruteForceInvertible1x1ConvBijection",
+    "LUInvertible1x1ConvBijection",
     "LULinearBijection",
     "MADEBijection",
     "rational_quadratic_spline",

@@ -9,8 +9,9 @@ A bijection is an ``nn.Module`` holding its parameters; constant buffers
 * ``inverse_point(z) -> x``, the decode path without the log-jacobian.
 
 Shapes are the static attributes ``x_shape`` / ``z_shape`` (no batch dim).
-The ported layers carry no running state (no batch-norm), so no method
-returns an updated state.
+No method returns an updated state: the running statistics of the coupler
+nets' batch-norm are buffers that a training step moves in place
+(``nets.batch_statistics``).
 """
 
 from torch import nn

@@ -11,8 +11,8 @@ same keys as the JAX package's ``{"params", "state"}`` trees, so
 * ``decode(u) -> x`` — the injective decoder g: ℝᵈ→ℝᴰ of the non-square
   chain.
 * ``sample(n, generator=None)`` and ``fixed_sample(noise=None)`` run under
-  ``torch.inference_mode()``, which routes every ResNet coupler through the
-  fused coupler-stack kernel (``nets/core.py``). ``_sample`` /
+  ``torch.inference_mode()``, which routes every batch-norm-free ResNet
+  coupler through the fused coupler-stack kernel (``nets/core.py``). ``_sample`` /
   ``_fixed_sample`` are the same functions in whatever mode the caller is
   in: under ``torch.no_grad()`` they take the conv modules instead.
 * ``extract_latent(x, earliest=False) -> latent`` — the encoder's latent of

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..nets import BatchNorm2d
 from .base import Density
 
 
@@ -85,11 +86,16 @@ class DiagonalGaussianConditionalDensity(nn.Module):
     """q(u|x) or p(u|z), a diagonal Gaussian whose means and log-stddevs
     come from a coupler of the conditioning input (gaussian.py:78-102). Not
     a ``Density``: a conditional distribution with ``log_prob``, ``sample``
-    and ``entropy``."""
+    and ``entropy``. Its coupler's batch-norm layers normalise by the batch
+    in a training step but keep their running statistics: the JAX package's
+    ``ELBODensity`` hands p's and q's state back unchanged (elbo.py:36-41)."""
 
     def __init__(self, coupler):
         super().__init__()
         self.coupler = coupler
+        for m in coupler.modules():
+            if isinstance(m, BatchNorm2d):
+                m.updates_running = False
 
     def means_and_stddevs(self, cond_inputs):
         shift, log_scale = self.coupler(cond_inputs)

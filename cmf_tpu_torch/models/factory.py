@@ -6,9 +6,10 @@ Covered: ``dequantization``, ``split``, ``non-square-head`` (exact and
 Hutchinson + CG log-det; the M-flow head with ``m_flow``),
 ``non-square-base``, ``affine``, ``flatten``, ``flip``, ``rand-channel-perm``, ``squeeze``, ``logit``, ``scalar-mult``,
 ``scalar-add``, ``acl`` with alternating-channel, checkerboard and
-split-channel masks, ``made``, ``linear`` (LU), ``nsf-ar``, and a layer
-with u-channels (``cond-affine``: the CIF ``ELBODensity`` with its p(u|z)
-and q(u|x)), MLP and batchnorm-free ResNet couplers, and the standard
+split-channel masks, ``made``, ``linear`` (LU), ``invconv`` (LU or free),
+``nsf-ar``, and a layer with u-channels (``cond-affine``: the CIF
+``ELBODensity`` with its p(u|z) and q(u|x), on flat or image shapes), MLP,
+ResNet (with or without batch-norm) and GlowCNN couplers, and the standard
 Gaussian. Any other layer type, mask, net or option raises
 ``NotImplementedError`` naming it.
 
@@ -23,10 +24,12 @@ from ..bijections import (
     AffineBijection,
     AlternatingChannelwiseCouplingBijection,
     AutoregressiveRationalQuadraticSplineBijection,
+    BruteForceInvertible1x1ConvBijection,
     Checkerboard2dCouplingBijection,
     ConditionalAffineBijection,
     FlipBijection,
     LogitBijection,
+    LUInvertible1x1ConvBijection,
     LULinearBijection,
     MADEBijection,
     RandomChannelwisePermutationBijection,
@@ -48,7 +51,7 @@ from ..densities import (
     NonSquareTailDensity,
     SplitDensity,
 )
-from ..nets import MLP, ResNet, get_activation
+from ..nets import MLP, GlowCNN, ResNet, get_activation
 
 
 def _later(what):
@@ -185,6 +188,9 @@ def get_bijection(layer_config, x_shape, generator):
     if ty == "linear":
         assert len(x_shape) == 1
         return LULinearBijection(num_input_channels=x_shape[0], generator=generator)
+    if ty == "invconv":
+        cls = LUInvertible1x1ConvBijection if layer_config["lu"] else BruteForceInvertible1x1ConvBijection
+        return cls(x_shape=x_shape, generator=generator)
     if ty == "nsf-ar":
         assert len(x_shape) == 1
         return AutoregressiveRationalQuadraticSplineBijection(
@@ -253,17 +259,28 @@ def get_coupler(input_shape, num_channels_per_output, config, generator):
 
 
 def get_coupler_net(input_shape, num_output_channels, net_config, generator):
-    if net_config["type"] == "resnet":
+    ty = net_config["type"]
+    if ty == "resnet":
         assert len(input_shape) == 3
         return ResNet(
             c_in=input_shape[0],
             hidden_channels=net_config["hidden_channels"],
             c_out=num_output_channels,
             use_batchnorm=net_config.get("batchnorm", True),
+            detach_bn=net_config.get("ignore_batch_effects", False),
             generator=generator,
         )
-    if net_config["type"] != "mlp":
-        raise _later(f"coupler net type `{net_config['type']}'")
+    if ty == "glow-cnn":
+        assert len(input_shape) == 3
+        return GlowCNN(
+            c_in=input_shape[0],
+            c_hidden=net_config["num_hidden_channels"],
+            c_out=num_output_channels,
+            zero_init_output=net_config["zero_init_output"],
+            generator=generator,
+        )
+    if ty != "mlp":
+        raise _later(f"coupler net type `{ty}'")
     assert len(input_shape) == 1
     return MLP(
         n_in=input_shape[0],

@@ -1,3 +1,23 @@
-from .core import MLP, AutoregressiveMLP, Conv, Dense, ResNet, get_activation
+from .core import (
+    MLP,
+    AutoregressiveMLP,
+    BatchNorm2d,
+    Conv,
+    Dense,
+    GlowCNN,
+    ResNet,
+    batch_statistics,
+    get_activation,
+)
 
-__all__ = ["MLP", "AutoregressiveMLP", "Conv", "Dense", "ResNet", "get_activation"]
+__all__ = [
+    "MLP",
+    "AutoregressiveMLP",
+    "BatchNorm2d",
+    "Conv",
+    "Dense",
+    "GlowCNN",
+    "ResNet",
+    "batch_statistics",
+    "get_activation",
+]

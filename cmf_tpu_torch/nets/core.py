@@ -1,6 +1,6 @@
 """Coupler networks (``cmf_tpu/nets/core.py`` in torch): the flat MLP, the
-masked autoregressive MLP of MADE and the AR spline, and the batchnorm-free
-conv ResNet.
+masked autoregressive MLP of MADE and the AR spline, the conv ResNet with
+or without batch-norm, and GlowCNN.
 
 Weights keep the JAX package's layouts, so JAX weights load with no
 transposes (``interop.py``): dense ``w`` of shape (in, out) applied as
@@ -8,13 +8,22 @@ transposes (``interop.py``): dense ``w`` of shape (in, out) applied as
 
 ``ResNet.forward`` routes the whole coupler through the fused coupler-stack
 kernel (``ops/coupler_stack.py``) under ``torch.inference_mode()`` — the
-sampling path — where the kernel takes the shape
-(``coupler_kernel_available``), and through ``F.conv2d`` otherwise.
+sampling path — where the net has no batch-norm and the kernel takes the
+shape (``coupler_kernel_available``), and through ``F.conv2d`` otherwise.
 Inference mode, and not ``torch.is_grad_enabled()``, is the gate: the
 Hutchinson solve's matvecs run without a graph but inside ``torch.func.jvp``
 / ``vjp``, which need the conv module's derivative rules, and ``torch.func``
 transforms turn inference mode off inside them.
+
+Batch-norm (``BatchNorm2d``) follows the JAX package's per-call ``train``
+flag through one switch: inside ``batch_statistics(module)`` every
+batch-norm layer of ``module`` normalises by the batch's statistics and
+moves its running ones; everywhere else it normalises by the running ones.
+The trainer's step is the one caller that turns it on, as the JAX trainer's
+step is the one that passes ``train=True`` (trainer.py:141-146).
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -139,36 +148,107 @@ class Conv(nn.Module):
         return F.conv2d(x, self.w, self.b, padding=self.w.shape[-1] // 2)
 
 
-class _ResidualBlock(nn.Module):
-    """relu → conv3x3 → relu → conv3x3, plus the skip (nets/core.py:198-233),
-    batchnorm-free."""
+class BatchNorm2d(nn.Module):
+    """NCHW batch-norm with running statistics (nets/core.py:161-195):
+    ``scale`` and ``bias`` parameters, ``mean`` and ``var`` persistent
+    buffers (the JAX layer's state), momentum 0.1, eps 1e-5.
 
-    def __init__(self, num_channels, generator=None):
+    Inside ``batch_statistics`` it normalises by the batch's mean and
+    *biased* variance, as ``jnp.var`` gives them, and moves the running
+    statistics by the same biased variance (``F.batch_norm`` would move
+    ``running_var`` by the unbiased one, n/(n−1) larger). With ``detach``
+    no gradient flows through the batch statistics. A layer whose
+    ``updates_running`` is off normalises by the batch all the same but
+    leaves its running statistics where they were: the conditional
+    Gaussians of a CIF layer, whose state the JAX package's ``ELBODensity``
+    hands back unchanged (elbo.py:36-41). Outside the switch it normalises
+    by the running statistics."""
+
+    def __init__(self, num_channels, momentum=0.1, eps=1e-5, detach=False):
         super().__init__()
-        self.conv1 = Conv(num_channels, num_channels, 3, generator=generator)
-        self.conv2 = Conv(num_channels, num_channels, 3, generator=generator)
+        self.momentum = momentum
+        self.eps = eps
+        self.detach = detach
+        self.batch_stats = False
+        self.updates_running = True
+        self.scale = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+        self.register_buffer("mean", torch.zeros(num_channels))
+        self.register_buffer("var", torch.ones(num_channels))
 
     def forward(self, x):
-        return x + self.conv2(torch.relu(self.conv1(torch.relu(x))))
+        if self.batch_stats:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            if self.detach:
+                mean, var = mean.detach(), var.detach()
+            if self.updates_running:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_((1 - m) * self.mean + m * mean.detach())
+                    self.var.copy_((1 - m) * self.var + m * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps)[None, :, None, None]
+        out = (x - mean[None, :, None, None]) * inv
+        return out * self.scale[None, :, None, None] + self.bias[None, :, None, None]
+
+
+@contextlib.contextmanager
+def batch_statistics(module):
+    """Every ``BatchNorm2d`` of ``module`` normalises by the batch for the
+    length of the block: the JAX package's ``train=True``."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    before = [m.batch_stats for m in layers]
+    for m in layers:
+        m.batch_stats = True
+    try:
+        yield
+    finally:
+        for m, b in zip(layers, before):
+            m.batch_stats = b
+
+
+class _ResidualBlock(nn.Module):
+    """[BN] → relu → conv3x3 → [BN] → relu → conv3x3, plus the skip
+    (nets/core.py:198-233); with batch-norm the convs have no bias."""
+
+    def __init__(self, num_channels, use_batchnorm=False, detach_bn=False, generator=None):
+        super().__init__()
+        bias = not use_batchnorm
+        self.conv1 = Conv(num_channels, num_channels, 3, bias=bias, generator=generator)
+        self.conv2 = Conv(num_channels, num_channels, 3, bias=bias, generator=generator)
+        self.use_batchnorm = use_batchnorm
+        if use_batchnorm:
+            self.bn1 = BatchNorm2d(num_channels, detach=detach_bn)
+            self.bn2 = BatchNorm2d(num_channels, detach=detach_bn)
+
+    def forward(self, x):
+        if not self.use_batchnorm:
+            return x + self.conv2(torch.relu(self.conv1(torch.relu(x))))
+        out = self.conv1(torch.relu(self.bn1(x)))
+        return x + self.conv2(torch.relu(self.bn2(out)))
 
 
 class ResNet(nn.Module):
-    """conv3x3 (bias-free) → residual blocks → relu → conv1x1, with the
-    scaled-tanh head ``head_w·tanh(·) + head_b`` (nets/core.py:236-293).
-    Batch-norm (``use_batchnorm=True``) waits for a later slice."""
+    """conv3x3 (bias-free) → residual blocks → [BN] → relu → conv1x1, with
+    the scaled-tanh head ``head_w·tanh(·) + head_b`` (nets/core.py:236-293).
+    With ``use_batchnorm`` every block and the output carry a
+    ``BatchNorm2d`` (``detach_bn``: no gradient through the batch
+    statistics); such a net never takes the coupler kernel, which is
+    batch-norm-free as the JAX package's is."""
 
-    def __init__(self, c_in, hidden_channels, c_out, use_batchnorm=False, generator=None):
+    def __init__(self, c_in, hidden_channels, c_out, use_batchnorm=False, detach_bn=False, generator=None):
         super().__init__()
-        if use_batchnorm:
-            raise NotImplementedError(
-                "the ResNet coupler with batch-norm waits for a later slice of the port (ROADMAP module 6)"
-            )
         hidden = list(hidden_channels)
         self.c_hidden = hidden[0] if hidden else c_out
         assert all(c == self.c_hidden for c in hidden), "blocks of one width only"
         self.use_batchnorm = use_batchnorm
         self.conv_in = Conv(c_in, self.c_hidden, 3, bias=False, generator=generator)
-        self.blocks = nn.ModuleList(_ResidualBlock(c, generator) for c in hidden)
+        self.blocks = nn.ModuleList(
+            _ResidualBlock(c, use_batchnorm, detach_bn, generator) for c in hidden
+        )
+        if use_batchnorm:
+            self.out_bn = BatchNorm2d(self.c_hidden, detach=detach_bn)
         self.conv_out = Conv(self.c_hidden, c_out, 1, generator=generator)
         self.head_w = nn.Parameter(torch.ones(c_out, 1, 1))
         self.head_b = nn.Parameter(torch.zeros(c_out, 1, 1))
@@ -199,5 +279,31 @@ class ResNet(nn.Module):
         out = self.conv_in(x)
         for block in self.blocks:
             out = block(out)
+        if self.use_batchnorm:
+            out = self.out_bn(out)
         out = self.conv_out(torch.relu(out))
         return self.head_w[None] * torch.tanh(out) + self.head_b[None]
+
+
+class GlowCNN(nn.Module):
+    """conv3x3 → BN → relu → conv1x1 → BN → relu → conv3x3 (nets/core.py:
+    296-333): the first two convs bias-free, the last with a bias, both of
+    its tensors zero at init under ``zero_init_output``. Batch-norm is
+    always on."""
+
+    def __init__(self, c_in, c_hidden, c_out, zero_init_output=True, generator=None):
+        super().__init__()
+        self.conv1 = Conv(c_in, c_hidden, 3, bias=False, generator=generator)
+        self.conv2 = Conv(c_hidden, c_hidden, 1, bias=False, generator=generator)
+        self.conv3 = Conv(c_hidden, c_out, 3, generator=generator)
+        if zero_init_output:
+            with torch.no_grad():
+                self.conv3.w.zero_()
+                self.conv3.b.zero_()
+        self.bn1 = BatchNorm2d(c_hidden)
+        self.bn2 = BatchNorm2d(c_hidden)
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        return self.conv3(out)

@@ -55,7 +55,8 @@ def _later(what):
 # Layer types of the JAX package's schemas that the port does not build yet
 # (ROADMAP module 8; batch-norm and its passthrough wrapper are module 6).
 WAITING_LAYERS = ("batch-norm", "passthrough-before-eval", "sos", "bnaf", "planar", "cond-planar",
-                  "nsf-c", "invconv")
+                  "nsf-c")
+COUPLER_NETS = ("mlp", "resnet", "glow-cnn")
 _COUPLER_KEYS = ("coupler", "st_coupler", "p_coupler", "q_coupler")
 
 
@@ -71,22 +72,28 @@ def _coupler_nets(layer):
 def check_schema(schema):
     """Raise naming every layer type of ``schema`` that waits for a later
     slice (in ``WAITING_LAYERS``' order), else the first layer option or
-    coupler net that does."""
+    coupler net that does. A non-square model's couplers stay batch-norm-free
+    (a ResNet with ``batchnorm`` or a GlowCNN is refused there):
+    its decode reads the statistics of the encoder's forward
+    (``cmf_tpu/densities/nonsquare.py:104-114``), which waits with the rest
+    of module 6."""
     types = {layer["type"] for layer in schema}
     waiting = [f"`{ty}'" for ty in WAITING_LAYERS if ty in types]
     if len(waiting) == 1:
         raise _later(f"the {waiting[0]} layer")
     if waiting:
         raise NotImplementedError(f"the {', '.join(waiting)} layers wait for a later slice of the port")
+    non_square = "non-square-head" in types
     for layer in schema:
         ty = layer["type"]
         if ty == "acl" and layer.get("num_u_channels", 0) > 0:
             raise _later("the `acl' layer with u-channels")
         for net in _coupler_nets(layer):
-            if net["type"] not in ("mlp", "resnet"):
+            if net["type"] not in COUPLER_NETS:
                 raise _later(f"the `{net['type']}' coupler net")
-            if net["type"] == "resnet" and net.get("batchnorm", True):
-                raise _later("the ResNet coupler with batch-norm (ROADMAP module 6)")
+            batch_norm = net["type"] == "glow-cnn" or (net["type"] == "resnet" and net.get("batchnorm", True))
+            if non_square and batch_norm:
+                raise _later(f"the non-square model with batch-norm `{net['type']}' couplers (ROADMAP module 6)")
 
 
 def check_supported(config, write_to_disk=True):

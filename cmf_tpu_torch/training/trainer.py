@@ -8,7 +8,8 @@ gradient norm and the update of the epoch's optimizer,
 CMF run, two under the M-flow split, the reconstruction group on even
 engine epochs and the latent prior on odd ones). Where the loss or the norm
 is not finite, the parameters, that optimizer's state and the
-floating-point buffers keep what they held before the step (``_keep``,
+floating-point buffers (the batch-norm running statistics among them, which
+the forward moves) keep what they held before the step (``_keep``,
 trainer.py:160-173), by a select on the device. The step reads nothing on
 the host: its losses stay on the device until the epoch ends, when one read
 fills ``history`` and the epoch raises ``FloatingPointError`` if any loss
@@ -69,6 +70,7 @@ import torch
 
 from ..densities import ELBODensity
 from ..densities.nonsquare import logdet_fallbacks
+from ..nets import batch_statistics
 from .checkpoint import make_checkpoint, restore_checkpoint
 from .writer import DummyWriter
 
@@ -82,21 +84,24 @@ class EarlyStop(Exception):
 
 def elbo_loss(density, x, flags, generator=None, **draws):
     """``-mean(elbo)`` of training batch ``x`` under an epoch's objective
-    ``flags``. ``generator`` draws the dequantization noise and the
-    Hutchinson probes; ``draws`` may pass them in instead
-    (``dequantization_noise``, ``hutchinson_eps``)."""
-    info = density.elbo(
-        x,
-        train=True,
-        generator=generator,
-        **draws,
-        likelihood_wt=flags["likelihood_wt"],
-        metric_wt=flags["metric_wt"],
-        add_reconstruction=flags["add_reconstruction"],
-        add_diagonal_metric_reg=flags["add_diagonal_metric_reg"],
-        add_offdiagonal_metric_reg=flags["add_offdiagonal_metric_reg"],
-        skip_likelihood=bool(flags["skip_likelihood"]),
-    )
+    ``flags``, in training mode: the batch-norm layers normalise by the
+    batch and move their running statistics (``batch_statistics``).
+    ``generator`` draws the dequantization noise and the Hutchinson probes;
+    ``draws`` may pass them in instead (``dequantization_noise``,
+    ``hutchinson_eps``)."""
+    with batch_statistics(density):
+        info = density.elbo(
+            x,
+            train=True,
+            generator=generator,
+            **draws,
+            likelihood_wt=flags["likelihood_wt"],
+            metric_wt=flags["metric_wt"],
+            add_reconstruction=flags["add_reconstruction"],
+            add_diagonal_metric_reg=flags["add_diagonal_metric_reg"],
+            add_offdiagonal_metric_reg=flags["add_offdiagonal_metric_reg"],
+            skip_likelihood=bool(flags["skip_likelihood"]),
+        )
     return -info["elbo"].mean()
 
 
@@ -296,15 +301,17 @@ class Trainer:
         """The step itself: (loss, grad_norm), 0-dim, on the device."""
         optimizer = self.optimizers[flags["optimizer_index"]]
         torch._foreach_zero_(self._grads)
+        # Kept before the forward, which moves the batch-norm statistics.
+        frozen = self._frozen(optimizer)
+        with torch.no_grad():
+            kept = _flat_by_dtype(frozen)
         step_flags = {**flags, "likelihood_wt": self._likelihood_wt, "metric_wt": self._metric_wt}
         loss = elbo_loss(self.density, x, step_flags, self.generator)
         loss.backward()
         loss = loss.detach()
-        frozen = self._frozen(optimizer)
         with torch.no_grad():
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._grads)))
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
-            kept = _flat_by_dtype(frozen)
         optimizer.step()
         with torch.no_grad():
             for idx, new in _flat_by_dtype(frozen).values():

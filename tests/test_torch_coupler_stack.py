@@ -330,7 +330,7 @@ def _image_couplers(dataset):
     """(C_in, hidden, H, W) of every ResNet coupler the factory builds for
     the dataset at full width: the non-square schema, and the realnvp
     schema (baseline, 8 blocks) with its ResNets built batchnorm-free — the
-    port builds no batch-norm ResNet, and the kernel route takes none."""
+    kernel route takes no batch-norm ResNet."""
     c, h, w = DATASET_SHAPES[dataset][:3]
     shapes = set()
     for model, baseline, overrides in (("non-square", False, {}),

@@ -158,7 +158,30 @@ def test_get_loaders_image_branch_matches(tmp_path):
 
 
 def test_resnet_coupler_with_batchnorm_waits_for_a_later_slice():
+    """The coupling with a batch-norm ResNet coupler, which once waited for
+    a later slice, now builds and matches the JAX layer: by the running
+    statistics outside a training step (forward, inverse, log-jacobian),
+    by the batch's inside one (forward, log-jacobian and the moved running
+    statistics)."""
+    from cmf_tpu_torch.nets import batch_statistics
+
     layer = _acl("checkerboard", False)
     layer["coupler"]["shift_log_scale_net"]["batchnorm"] = True
-    with pytest.raises(NotImplementedError, match="batch-norm.*later slice"):
-        get_density([layer], x_shape=(1, 8, 8), device="cpu")
+    jd, jv, td = _pair([layer], (1, 8, 8), seed=5)
+    jbij = jd.bijection
+    jbv = {"params": jv["params"]["bijection"], "state": jv["state"]["bijection"]}
+    x = np.random.default_rng(2).normal(size=(3, 1, 8, 8)).astype(np.float32)
+    z_j, lj_j, _ = jbij.forward(jbv, jnp.asarray(x))
+    z_t, lj_t = td.bijection(t(x))
+    _close(z_t, z_j)
+    _close(lj_t, lj_j)
+    x_j, _ = jbij.inverse(jbv, z_j)
+    _close(td.bijection.inverse(t(np.asarray(z_j)))[0], x_j)
+
+    z_j, lj_j, state_j = jbij.forward(jbv, jnp.asarray(x), train=True)
+    with batch_statistics(td):
+        z_t, lj_t = td.bijection(t(x))
+    _close(z_t, z_j)
+    _close(lj_t, lj_j)
+    bn = td.bijection.coupler.net.blocks[0].bn1
+    _close(bn.var, state_j["coupler"]["blocks"][0]["bn1"]["var"])

@@ -109,6 +109,6 @@ def test_unported_layer_raises_naming_it():
     from cmf_tpu_torch.models import get_density
 
     schema = small_schema()
-    schema.insert(2, {"type": "invconv", "lu": True})
-    with pytest.raises(NotImplementedError, match="invconv"):
+    schema.insert(2, {"type": "planar"})
+    with pytest.raises(NotImplementedError, match="`planar'"):
         get_density(schema, x_shape=(11,), device="cpu")

@@ -138,6 +138,8 @@ _PORTED = [
     (lambda: _published("nsf-ar", baseline=True), "nsf-ar-miniboone-baseline"),
     (lambda: _published("nsf-ar"), "nsf-ar-miniboone"),
     (lambda: _published("cond-affine"), "cond-affine-miniboone"),
+    (lambda: _published("glow", "mnist"), "glow-mnist"),
+    (lambda: _published("realnvp", "mnist"), "realnvp-mnist"),
 ]
 # (config, id, what the refusal must name): one case per layer type that
 # waits, each from a published config that has it.
@@ -151,8 +153,8 @@ _UNPORTED = [
     (lambda: _published("planar", "2uniforms", baseline=True), "planar-2uniforms-baseline", "`planar'"),
     (lambda: _published("planar", "2uniforms"), "planar-2uniforms", "`cond-planar'"),
     (lambda: _published("nsf-ar", baseline=True, autoregressive=False), "nsf-c-miniboone-baseline", "`nsf-c'"),
-    (lambda: _published("glow", "mnist"), "glow-mnist", "`invconv'"),
-    (lambda: _published("realnvp", "mnist"), "realnvp-mnist", "ResNet coupler with batch-norm"),
+    (lambda: _published("non-square", "mnist", resnet_batchnorm=True), "non-square-mnist-resnet_batchnorm-True",
+     "non-square model with batch-norm `resnet' couplers"),
 ]
 
 
@@ -183,8 +185,10 @@ def test_acl_with_u_channels_is_refused():
 @pytest.mark.parametrize("make", [m for m, _ in _PORTED], ids=[i for _, i in _PORTED])
 def test_ported_config_passes(make):
     """mnist's metric and centering analyses into a run dir (matplotlib
-    imports here), the M-flow baseline, the optimizer options, and the
-    tabular square NSF and CIFs with their published settings."""
+    imports here), the M-flow baseline, the optimizer options, the
+    tabular square NSF and CIFs, and the image square flow and CIF with
+    their invconvs, GlowCNN and batch-norm ResNet couplers, with their
+    published settings."""
     check_supported(make())
 
 

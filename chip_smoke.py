@@ -196,6 +196,26 @@ Phases, each of which fails the run on its own failure:
                   batch-norm network's fp32 gradients at batch 8 are
                   further than 1e-3 apart on any two devices: each side's
                   are held within 0.2 of the fp64 step's max |grad|).
+20. square-2d  -- the 2-D zoo's square flows and CIFs: the 14 published 2-D
+                  commands on 2uniforms (``--model sos|planar|bnaf|maf|
+                  realnvp|nsf-ar``, each with and without ``--baseline``,
+                  ``affine --baseline``, and the coupled spline ``nsf-ar
+                  --baseline --config autoregressive=False``) at their
+                  published widths, depths and batch of 1000 under
+                  ``--nosave``, for 2 epochs of 3 steps with a validation
+                  each epoch and a test pass at epoch 1, with no
+                  Gram/log-det or coupler launch over the runs; ``sample``
+                  raising for the forward-only sos, planar and BNAF; for
+                  each, 3 captured steps against 3 eager ones, ms a captured
+                  step, its device ops and idle share, a card step against
+                  the CPU's on the same u; then the coupled spline at
+                  miniboone's published widths into a run dir (resumed one
+                  epoch bit-equal, ``--test --resume`` with 50,000 FID
+                  samples, its captured steps, card against CPU, one
+                  ``sample(5000)`` profiled beside the AR NSF's); and one
+                  sos layer at the published tabular widths (D = 43, [200]x2,
+                  K = 5, r = 4) over 1000 rows, card against CPU, with the
+                  finite rows of the published 8 layers without batch-norm.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -478,6 +498,50 @@ FP32_BN_GRAD_TOL = 0.2
 # The runs whose sample(5000) the phase profiles: the CIF NSF inverts through
 # the square NSF's AR splines, and a profile of its ~48,000 ops costs seconds.
 SQUARE_CIF_SAMPLE_PROFILED = ("maf", "nsf-ar --baseline", "cond-affine")
+# The 2-D zoo's square flows and CIFs: the published 2-D commands
+# (``config/defaults/two_d.py``) on 2uniforms at every published width and
+# depth and the published batch of 1000, under --nosave, cut to
+# SQUARE_2D_EPOCHS epochs of 3 steps (every split capped at
+# SQUARE_2D_ROWS rows), with a validation every epoch and a test pass at
+# epoch 1. (tag, CLI model arguments).
+SQUARE_2D_RUNS = [
+    ("sos", ["--model", "sos"]),
+    ("sos --baseline", ["--model", "sos", "--baseline"]),
+    ("planar", ["--model", "planar"]),
+    ("planar --baseline", ["--model", "planar", "--baseline"]),
+    ("bnaf", ["--model", "bnaf"]),
+    ("bnaf --baseline", ["--model", "bnaf", "--baseline"]),
+    ("maf", ["--model", "maf"]),
+    ("maf --baseline", ["--model", "maf", "--baseline"]),
+    ("realnvp", ["--model", "realnvp"]),
+    ("realnvp --baseline", ["--model", "realnvp", "--baseline"]),
+    ("nsf-ar", ["--model", "nsf-ar"]),
+    ("nsf-ar --baseline", ["--model", "nsf-ar", "--baseline"]),
+    ("affine --baseline", ["--model", "affine", "--baseline"]),
+    ("nsf-c --baseline", ["--model", "nsf-ar", "--baseline", "--config", "autoregressive=False"]),
+]
+SQUARE_2D_DATASET = "2uniforms"
+SQUARE_2D_ROWS = 3000
+SQUARE_2D_EPOCHS = 2
+# The layers with no analytic inverse: a model with one has no ``sample``.
+FORWARD_ONLY_MODELS = ("sos", "planar", "bnaf")
+# The coupled spline at miniboone's published widths (``tabular.py``: a
+# random permutation, an LU linear layer and ``nsf-c`` a layer), cut as the
+# square-cif phase cuts the NSF: 192 rows, 3 steps of 64 an epoch, 2 epochs.
+NSF_C_MINIBOONE = ["--model", "nsf-ar", "--baseline", "--config", "autoregressive=False"]
+NSF_C_ROWS, NSF_C_EPOCHS = 192, 2
+NSF_C_SAMPLES = 5000
+# The AR NSF's sample(5000) that the square-cif phase profiled (PERF.md §5,
+# PR 13's final run): its inverse is 43 sequential passes, the coupled
+# spline's one.
+AR_NSF_SAMPLE_MS = 1102.21
+# One sos layer at the published tabular widths (``tabular.py``: D = 43,
+# g_hidden [200]x2, K = 5, r = 4), over a batch of 1000 synthetic miniboone
+# rows; and the published 8 layers with flips, forward only (without the
+# batch-norm between them the degree-9 powers compound).
+SOS_TABULAR = {"type": "sos", "hidden_channels": [200, 200], "activation": "tanh", "num_polynomials": 5,
+               "polynomial_degree": 4}
+SOS_TABULAR_LAYERS, SOS_TABULAR_BATCH = 8, 1000
 
 
 def rel_err(got, ref):
@@ -2505,21 +2569,25 @@ def square_cif_argv(model_args, cap, epochs):
                          "--config", f"max_epochs={epochs}", "--config", "seed=0"]
 
 
-def square_cif_setup(model_args, cap, epochs):
-    """The setup the CLI makes of ``square_cif_argv(...) + ["--nosave"]``,
-    before any step (``fresh_setup``'s ``max_epochs=0`` would give the
-    cosine schedule no steps)."""
+def nosave_setup(model_args, dataset, cap, epochs):
+    """The setup the CLI makes of ``model_args`` (``--model``, ``--baseline``
+    and ``--config`` pairs) on ``dataset`` under ``--nosave``, every split
+    capped at ``cap`` rows, before any step (``fresh_setup``'s
+    ``max_epochs=0`` would give the cosine schedule no steps)."""
     from cmf_tpu_torch.config import expand_grid, get_config
+    from cmf_tpu_torch.main import parse_config_arg
     from cmf_tpu_torch.training import experiment
 
-    model = model_args[1]
-    config = expand_grid(get_config("miniboone", model, use_baseline="--baseline" in model_args))[0]
-    config = {**config, "model": model, "dataset": "miniboone", "synthetic_data": True, "nosave": True,
-              "max_dataset_size": cap, "max_epochs": epochs, "seed": 0}
+    model = model_args[model_args.index("--model") + 1]
+    pairs = [model_args[i + 1] for i, arg in enumerate(model_args) if arg == "--config"]
+    config = expand_grid(get_config(dataset, model, use_baseline="--baseline" in model_args))[0]
+    config = {**config, "model": model, "dataset": dataset, "synthetic_data": True, "nosave": True,
+              **dict(parse_config_arg(kv) for kv in pairs), "max_dataset_size": cap, "max_epochs": epochs,
+              "seed": 0}
     return experiment.setup_experiment(config, write_to_disk=False)
 
 
-def square_cif_resume_and_test(tag, run_dir, epochs, steps):
+def square_cif_resume_and_test(tag, run_dir, epochs, steps, phase="square-cif"):
     """A copy of the run dir trained one more epoch (its restored state
     bit-equal to ``latest``), then ``--test --resume`` on the run dir."""
     import torch
@@ -2544,7 +2612,7 @@ def square_cif_resume_and_test(tag, run_dir, epochs, steps):
     trainer_r.train()
     torch.cuda.synchronize()
     history_r = trainer_r.history
-    print(f"[square-cif] {tag}: resumed from `{trainer_r.restored_from}' after epoch {saved['epoch']}: "
+    print(f"[{phase}] {tag}: resumed from `{trainer_r.restored_from}' after epoch {saved['epoch']}: "
           f"{len(tensors)} tensors and the generator state bit-equal {same}; then epochs "
           f"{sorted({h[0] for h in history_r})}, {len(history_r)} steps, {len(captured_steps(trainer_r))} graph(s)")
     assert trainer_r.restored_from == "latest" and same, f"{tag}: the resumed state differs from `latest'"
@@ -2558,11 +2626,51 @@ def square_cif_resume_and_test(tag, run_dir, epochs, steps):
     with open(os.path.join(run_dir, "metrics.json")) as f:
         results = json.load(f)
     shown = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in results.items()}
-    print(f"[square-cif] {tag}: --test --resume from `{tested['trainer'].restored_from}' "
+    print(f"[{phase}] {tag}: --test --resume from `{tested['trainer'].restored_from}' "
           f"({tested['config']['num_fid_samples']:,} FID samples): metrics.json {shown}; {test_s:.4f} s")
     numbers = [v for k, v in results.items() if k != "feature_extractor"]
     assert {"elbo", "log-prob", "bpd", "elbo-gap", "fid"} <= set(results), f"{tag}: metrics.json lacks a metric"
     assert all(math.isfinite(v) for v in numbers), f"{tag}: non-finite test metric"
+
+
+def square_cif_run_checks(smi, label, model_args, epochs, setup, seconds, phase="square-cif"):
+    """A tabular square or CIF run of the CLI into a run dir: its losses,
+    steps, route, validations, test pass and FID passes."""
+    from cmf_tpu_torch.densities import ELBODensity
+
+    trainer, density, config = setup["trainer"], setup["density"], setup["config"]
+    run_dir = setup["writer"].logdir
+    history = trainer.history
+    cif_layers = sum(isinstance(m, ELBODensity) for m in density.modules())
+    steps = len(trainer.train_loader)
+    valid = _scalar_steps(run_dir, "valid/loss")
+    tests = {k: _scalar_steps(run_dir, f"test/{k}") for k in ("log-prob", "fid")}
+    timings = trainer.timings
+    train_s = timings["train"][1]
+    fid_n, fid_s = timings.get("fid", (0, 0.0))
+    print(f"[{phase}] {label}: {type(density).__name__} root, {cif_layers} CIF layers (u = "
+          f"{config['num_u_channels'] if cif_layers else 0}), {sum(p.numel() for p in density.parameters()):,} "
+          f"parameters; batch {config['train_batch_size']}, {config['opt']} lr {config['lr']:g}, schedule "
+          f"{config['lr_schedule']}, max_grad_norm {config['max_grad_norm']}; {len(history)} steps over "
+          f"epochs {sorted({h[0] for h in history})}, losses {history[0][1]:.6g} -> {history[-1][1]:.6g}; "
+          f"route {'captured' if trainer.captured else 'eager'}, {len(captured_steps(trainer))} graph(s); "
+          f"valid/loss (FID) at {sorted(valid)}: {', '.join(f'{v:.6g}' for v in valid.values())}; "
+          f"test/log-prob {tests['log-prob']}, test/fid {tests['fid']}")
+    print(f"[{phase}] {label} {smi}: the run took {seconds:.4f} s; {fid_n} FID pass(es) of "
+          f"{config['num_fid_samples']:,} samples, {fid_s / max(fid_n, 1) * 1e3:.4f} ms each; training epochs "
+          f"{train_s:.4f} s, so {1 - train_s / seconds:.4f} of the run outside training steps (host clock)")
+    assert all(math.isfinite(h[1]) for h in history), f"{label}: non-finite training loss"
+    assert len(history) == epochs * steps and steps >= 3, f"{label}: steps != epochs x batches"
+    assert (cif_layers > 0) == ("--baseline" not in model_args), f"{label}: the wrong family was built"
+    assert trainer.captured == (density.step_capturable and setup["device"].type == "cuda"), \
+        f"{label}: the route does not follow the rule"
+    assert len(captured_steps(trainer)) == (1 if trainer.captured else 0), f"{label}: not one graph"
+    assert sorted(valid) == (list(range(1, epochs + 1)) if config["early_stopping"] else []), \
+        f"{label}: validated on other epochs"
+    assert sorted(tests["fid"]) == sorted(tests["log-prob"]) == [1], f"{label}: no test pass at epoch 1"
+    assert all(math.isfinite(v) for d in [valid] + list(tests.values()) for v in d.values()), \
+        f"{label}: a non-finite validation or test number"
+    assert fid_n == len(valid) + 1, f"{label}: FID passes != validations + tests"
 
 
 def phase_square_cif(smi, root):
@@ -2574,7 +2682,7 @@ def phase_square_cif(smi, root):
     graph from the trainer's generator), ms a step and the idle share of
     each route, and a card step against the CPU."""
     import torch
-    from cmf_tpu_torch.densities import ELBODensity, elbo
+    from cmf_tpu_torch.densities import elbo
     from cmf_tpu_torch.main import main as cli_main
     from cmf_tpu_torch.ops import coupler_stack as cs
     from cmf_tpu_torch.ops import gram_logdet as gl
@@ -2602,39 +2710,7 @@ def phase_square_cif(smi, root):
         launches = gl.launch_counts(), cs.LAUNCHES
 
         for tag, label, job, model_args, cap, epochs, setup, seconds in runs:
-            trainer, density, config = setup["trainer"], setup["density"], setup["config"]
-            run_dir = setup["writer"].logdir
-            history = trainer.history
-            cif_layers = sum(isinstance(m, ELBODensity) for m in density.modules())
-            steps = len(trainer.train_loader)
-            valid = _scalar_steps(run_dir, "valid/loss")
-            tests = {k: _scalar_steps(run_dir, f"test/{k}") for k in ("log-prob", "fid")}
-            timings = trainer.timings
-            train_s = timings["train"][1]
-            fid_n, fid_s = timings.get("fid", (0, 0.0))
-            print(f"[square-cif] {label}: {type(density).__name__} root, {cif_layers} CIF layers (u = "
-                  f"{config['num_u_channels'] if cif_layers else 0}), {sum(p.numel() for p in density.parameters()):,} "
-                  f"parameters; batch {config['train_batch_size']}, {config['opt']} lr {config['lr']:g}, schedule "
-                  f"{config['lr_schedule']}, max_grad_norm {config['max_grad_norm']}; {len(history)} steps over "
-                  f"epochs {sorted({h[0] for h in history})}, losses {history[0][1]:.6g} -> {history[-1][1]:.6g}; "
-                  f"route {'captured' if trainer.captured else 'eager'}, {len(captured_steps(trainer))} graph(s); "
-                  f"valid/loss (FID) at {sorted(valid)}: {', '.join(f'{v:.6g}' for v in valid.values())}; "
-                  f"test/log-prob {tests['log-prob']}, test/fid {tests['fid']}")
-            print(f"[square-cif] {label} {smi}: the run took {seconds:.4f} s; {fid_n} FID pass(es) of "
-                  f"{config['num_fid_samples']:,} samples, {fid_s / max(fid_n, 1) * 1e3:.4f} ms each; training epochs "
-                  f"{train_s:.4f} s, so {1 - train_s / seconds:.4f} of the run outside training steps (host clock)")
-            assert all(math.isfinite(h[1]) for h in history), f"{tag}: non-finite training loss"
-            assert len(history) == epochs * steps and steps >= 3, f"{tag}: steps != epochs x batches"
-            assert (cif_layers > 0) == ("--baseline" not in model_args), f"{tag}: the wrong family was built"
-            assert trainer.captured == (density.step_capturable and setup["device"].type == "cuda"), \
-                f"{tag}: the route does not follow the rule"
-            assert len(captured_steps(trainer)) == (1 if trainer.captured else 0), f"{tag}: not one graph"
-            assert sorted(valid) == (list(range(1, epochs + 1)) if config["early_stopping"] else []), \
-                f"{tag}: validated on other epochs"
-            assert sorted(tests["fid"]) == sorted(tests["log-prob"]) == [1], f"{tag}: no test pass at epoch 1"
-            assert all(math.isfinite(v) for d in [valid] + list(tests.values()) for v in d.values()), \
-                f"{tag}: a non-finite validation or test number"
-            assert fid_n == len(valid) + 1, f"{tag}: FID passes != validations + tests"
+            square_cif_run_checks(smi, label, model_args, epochs, setup, seconds)
         print(f"[square-cif] Gram/log-det launches (fwd, bwd) {launches[0]} and coupler launches {launches[1]} "
               f"over the {len(runs)} runs")
         assert launches == ((0, 0), 0), "a kernel launched on the tabular square and CIF runs"
@@ -2648,9 +2724,9 @@ def phase_square_cif(smi, root):
 
     # Each model's step: captured against eager, times, idle shares, the CPU.
     for tag, model_args, cap, epochs, jobs in SQUARE_CIF_RUNS:
-        probe = square_cif_setup(model_args, cap, epochs)
+        probe = nosave_setup(model_args, "miniboone", cap, epochs)
         density = probe["density"]
-        second = square_cif_setup(model_args, cap, epochs)
+        second = nosave_setup(model_args, "miniboone", cap, epochs)
         if density.step_capturable:
             captured, eager, flags, batches = trainers_captured_vs_eager(
                 probe["trainer"], second["trainer"], f"square-cif {tag}")
@@ -2668,11 +2744,7 @@ def phase_square_cif(smi, root):
             print(f"[square-cif] {tag}: the step is eager by ELBODensity.step_capturable's rule")
         step_time(eager.eager_step, x, flags, 5, "square-cif", f"{tag}, eager: ")
         gen = torch.Generator(device=x.device).manual_seed(7)
-        draws = {}
-        layers = [m for m in density.modules() if isinstance(m, ELBODensity)]
-        if layers:
-            num_u = probe["config"]["num_u_channels"]
-            draws["u_noise"] = [torch.randn(x.shape[0], num_u, generator=gen, device=x.device) for _ in layers]
+        draws = u_draws(density, x, gen, probe["config"]["num_u_channels"])
         card_vs_cpu(second, x, flags, f"square-cif {tag}", STEP_LOSS_TOL, STEP_GRAD_TOL, **draws)
         # A FID chunk's samples: the inverse's sequential passes.
         if tag in SQUARE_CIF_SAMPLE_PROFILED:
@@ -2960,6 +3032,172 @@ def phase_image_square(smi, root):
     print(f"[image-square] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+def square_2d_argv(model_args):
+    return model_args + ["--dataset", SQUARE_2D_DATASET, "--nosave", "--config", f"max_dataset_size={SQUARE_2D_ROWS}",
+                         "--config", f"max_epochs={SQUARE_2D_EPOCHS}", "--config", "seed=0"]
+
+
+def u_draws(density, x, gen, num_u):
+    """One standard normal ε of u a CIF layer of ``density``, from ``gen``:
+    the draws ``card_vs_cpu`` passes to both sides."""
+    import torch
+    from cmf_tpu_torch.densities import ELBODensity
+
+    layers = [m for m in density.modules() if isinstance(m, ELBODensity)]
+    noise = [torch.randn(x.shape[0], num_u, generator=gen, device=x.device) for _ in layers]
+    return {"u_noise": noise} if noise else {}
+
+
+def captured_step_numbers(tag, model_args, dataset, cap, epochs, smi, phase):
+    """Captured steps against eager ones from the same weights (the CIF's u
+    drawn inside the graph), the ms of a captured step, its device ops and
+    idle share, and a card step against the CPU's on the same u."""
+    import torch
+
+    probe = nosave_setup(model_args, dataset, cap, epochs)
+    second = nosave_setup(model_args, dataset, cap, epochs)
+    assert probe["density"].step_capturable, f"{tag}: the step is not capturable"
+    captured, eager, flags, batches = trainers_captured_vs_eager(probe["trainer"], second["trainer"],
+                                                                 f"{phase} {tag}")
+    x = batches[0]
+    replay_ms = cuda_ms(lambda: captured.step(x, flags), iters=20, warmup=2)
+    print(f"[{phase}] {smi}: {tag}, captured: {replay_ms:.4f} ms per step back to back (CUDA events), "
+          f"{x.shape[0] / replay_ms * 1e3:.1f} samples/s")
+    profile_steps(captured.step, x, flags, 3, phase, f"{tag}, captured: ")
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    draws = u_draws(second["density"], x, gen, second["config"]["num_u_channels"])
+    card_vs_cpu(second, x, flags, f"{phase} {tag}", STEP_LOSS_TOL, STEP_GRAD_TOL, **draws)
+    return probe
+
+
+def phase_square_2d(smi, root):
+    """The 2-D zoo's square flows and CIFs on the card: the 14 published
+    2-D commands at their widths and depths under --nosave, no Gram/log-det
+    or coupler launch over them; each one's captured steps against eager
+    ones, ms and idle share, and a card step against the CPU; ``sample``
+    raising for the forward-only flows. Then the coupled spline at
+    miniboone's published widths into a run dir (resumed, tested, its
+    steps, one ``sample(5000)`` profiled), and one sos layer at the
+    published tabular widths, card against CPU."""
+    import torch
+    from cmf_tpu_torch.config import expand_grid, get_config
+    from cmf_tpu_torch.data.tabular import get_tabular_datasets
+    from cmf_tpu_torch.densities import ELBODensity
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.training import get_objective
+
+    phase_t0 = time.perf_counter()
+    runs = []
+    # The main path: the counts are read right after it.
+    with _Recorded() as rec:
+        gl.reset_launch_counts()
+        cs.reset_launch_counts()
+        for tag, model_args in SQUARE_2D_RUNS:
+            start = len(rec.rows)
+            t0 = time.perf_counter()
+            (setup,) = cli_main(square_2d_argv(model_args))
+            torch.cuda.synchronize()
+            runs.append((tag, model_args, setup, time.perf_counter() - t0, rec.rows[start:]))
+        torch.cuda.synchronize()
+        launches = gl.launch_counts(), cs.LAUNCHES
+    print(f"[square-2d] Gram/log-det launches (fwd, bwd) {launches[0]} and coupler launches {launches[1]} "
+          f"over the {len(runs)} runs")
+    assert launches == ((0, 0), 0), "a kernel launched on the 2-D square and CIF runs"
+
+    for tag, model_args, setup, seconds, rows in runs:
+        trainer, density, config = setup["trainer"], setup["density"], setup["config"]
+        history = trainer.history
+        scalars = {}
+        for name, value, step in rows:
+            scalars.setdefault(name, {})[step] = value
+        valid = scalars.get("valid/loss", {})
+        tests = {name[len("test/"):]: steps for name, steps in scalars.items() if name.startswith("test/")}
+        test = tests.get("log-prob", {})
+        cif_layers = sum(isinstance(m, ELBODensity) for m in density.modules())
+        layer_types = sorted({type(m).__name__ for m in density.modules() if hasattr(m, "inverse_point")})
+        print(f"[square-2d] {tag}: {cif_layers} CIF layers, {sum(p.numel() for p in density.parameters()):,} "
+              f"parameters, layers {', '.join(layer_types)}; batch {config['train_batch_size']}, {config['opt']} lr "
+              f"{config['lr']:g}, schedule {config['lr_schedule']}; {len(history)} steps, losses "
+              f"{history[0][1]:.6g} -> {history[-1][1]:.6g}; route {'captured' if trainer.captured else 'eager'}, "
+              f"{len(captured_steps(trainer))} graph(s); valid/loss at {sorted(valid)}: "
+              f"{', '.join(f'{v:.6g}' for v in valid.values())}; test/log-prob at {sorted(test)}: "
+              f"{', '.join(f'{v:.6g}' for v in test.values())} (test keys {sorted(tests)}); the run took "
+              f"{seconds:.4f} s (host clock)")
+        assert all(math.isfinite(h[1]) for h in history), f"{tag}: non-finite training loss"
+        assert len(history) == SQUARE_2D_EPOCHS * 3 == SQUARE_2D_EPOCHS * len(trainer.train_loader), \
+            f"{tag}: not {SQUARE_2D_EPOCHS} epochs of 3 steps"
+        assert (cif_layers > 0) == ("--baseline" not in model_args), f"{tag}: the wrong family was built"
+        assert trainer.captured and len(captured_steps(trainer)) == 1, f"{tag}: not one graph"
+        assert sorted(valid) == list(range(1, SQUARE_2D_EPOCHS + 1)), f"{tag}: validated on other epochs"
+        assert set(tests) == {"elbo", "log-prob", "bpd", "elbo-gap"} and all(
+            sorted(steps) == [1] for steps in tests.values()), f"{tag}: no test pass at epoch 1 alone"
+        assert all(math.isfinite(v) for steps in [valid, *tests.values()] for v in steps.values()), \
+            f"{tag}: a non-finite validation or test number"
+        if model_args[1] in FORWARD_ONLY_MODELS:
+            try:
+                density.sample(4, generator=torch.Generator(device="cuda").manual_seed(0))
+            except NotImplementedError as raised:
+                print(f"[square-2d] {tag}: sample raises NotImplementedError: {raised}")
+            else:
+                raise AssertionError(f"{tag}: sample did not raise")
+        captured_step_numbers(tag, model_args, SQUARE_2D_DATASET, SQUARE_2D_ROWS, SQUARE_2D_EPOCHS, smi,
+                              "square-2d")
+    print(f"[square-2d] {smi}: the 2-D runs and their checks took {time.perf_counter() - phase_t0:.2f} s")
+
+    # The coupled spline at miniboone's published widths, into a run dir.
+    tag = "nsf-c miniboone --baseline"
+    streams = sys.stdout, sys.stderr
+    try:
+        gl.reset_launch_counts()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        (setup,) = cli_main(square_cif_argv(NSF_C_MINIBOONE, NSF_C_ROWS, NSF_C_EPOCHS) + ["--logdir-root", root])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = gl.launch_counts(), cs.LAUNCHES
+        _restore_streams(streams)
+        print(f"[square-2d] {tag}: Gram/log-det launches (fwd, bwd) {launches[0]} and coupler launches "
+              f"{launches[1]}")
+        assert launches == ((0, 0), 0), f"{tag}: a kernel launched"
+        square_cif_run_checks(smi, tag, NSF_C_MINIBOONE, NSF_C_EPOCHS, setup, seconds, phase="square-2d")
+        assert any(type(m).__name__ == "CoupledRationalQuadraticSplineBijection" for m in setup["density"].modules())
+        square_cif_resume_and_test(tag, setup["writer"].logdir, NSF_C_EPOCHS, len(setup["trainer"].train_loader),
+                                   phase="square-2d")
+    finally:
+        _restore_streams(streams)
+    probe = captured_step_numbers(tag, NSF_C_MINIBOONE, "miniboone", NSF_C_ROWS, NSF_C_EPOCHS, smi, "square-2d")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ops, busy, wall = profile_steps(lambda *_: probe["density"].sample(NSF_C_SAMPLES, generator=gen), None, None,
+                                    1, "square-2d", f"{tag}, sample({NSF_C_SAMPLES}): ", unit="call")
+    print(f"[square-2d] {smi}: {tag}: sample({NSF_C_SAMPLES}) {wall:.4f} ms wall, {busy:.4f} ms busy, {ops} device "
+          f"ops (one pass a coupling inverse), against {AR_NSF_SAMPLE_MS} ms for the AR NSF's (43 passes a "
+          f"layer; PERF.md, PR 13)")
+
+    # One sos layer at the published tabular widths, card against CPU.
+    x = torch.tensor(get_tabular_datasets("miniboone", synthetic=True)[0][:SOS_TABULAR_BATCH], device="cuda")
+    flags = get_objective(expand_grid(get_config("miniboone", "sos", use_baseline=True))[0]).for_epoch(1)
+    schema = [{"type": "flatten"}, SOS_TABULAR]
+    density = get_density(schema, x_shape=(43,), device="cuda", generator=torch.Generator().manual_seed(0))
+    card_vs_cpu({"density": density, "schema": schema}, x, flags, "square-2d sos layer at tabular width",
+                STEP_LOSS_TOL, STEP_GRAD_TOL)
+    schema = [{"type": "flatten"}] + [layer for i in range(SOS_TABULAR_LAYERS)
+                                      for layer in ([{"type": "flip"}] if i else []) + [SOS_TABULAR]]
+    gpu = get_density(schema, x_shape=(43,), device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu = get_density(schema, x_shape=(43,), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    with torch.no_grad():
+        elbo_g, elbo_c = gpu.elbo(x)["elbo"].cpu(), cpu.elbo(x.cpu())["elbo"]
+    both = torch.isfinite(elbo_g) & torch.isfinite(elbo_c)
+    print(f"[square-2d] {SOS_TABULAR_LAYERS} sos layers with flips at tabular width, no batch-norm between them, "
+          f"at init: {int(torch.isfinite(elbo_g).sum())} of {len(x)} rows finite on the card, "
+          f"{int(torch.isfinite(elbo_c).sum())} on the CPU, {int(both.sum())} on both; the elbo of those "
+          f"{rel_err(elbo_g[both], elbo_c[both]):.3e} apart (max err over max(1, max |elbo|))")
+    print(f"[square-2d] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -2999,6 +3237,7 @@ def main():
         timed("mflow", phase_mflow, smi, root)
         timed("square-cif", phase_square_cif, smi, root)
         timed("image-square", phase_image_square, smi, root)
+        timed("square-2d", phase_square_2d, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

@@ -1,33 +1,49 @@
 from .affine import AffineBijection, ConditionalAffineBijection
-from .base import Bijection
+from .base import Bijection, CompositeBijection, IdentityBijection, InverseBijection
+from .bnaf import BlockNeuralAutoregressiveBijection
 from .coupling import (
     AlternatingChannelwiseCouplingBijection,
     Checkerboard2dCouplingBijection,
+    MaskedChannelwiseCouplingBijection,
     SplitChannelwiseCouplingBijection,
 )
-from .elementwise import LogitBijection, ScalarAdditionBijection, ScalarMultiplicationBijection
+from .elementwise import LogitBijection, ScalarAdditionBijection, ScalarMultiplicationBijection, TanhBijection
 from .linear import (
     BruteForceInvertible1x1ConvBijection,
     LUInvertible1x1ConvBijection,
     LULinearBijection,
 )
 from .made import MADEBijection
+from .planar import ConditionalPlanarBijection, PlanarBijection
 from .reshaping import (
     FlipBijection,
     RandomChannelwisePermutationBijection,
     Squeeze2dBijection,
     ViewBijection,
 )
-from .spline import AutoregressiveRationalQuadraticSplineBijection, rational_quadratic_spline
+from .sos import SumOfSquaresPolynomialBijection
+from .spline import (
+    AutoregressiveRationalQuadraticSplineBijection,
+    CoupledRationalQuadraticSplineBijection,
+    rational_quadratic_spline,
+)
 
 __all__ = [
     "AffineBijection",
     "AutoregressiveRationalQuadraticSplineBijection",
+    "BlockNeuralAutoregressiveBijection",
+    "CompositeBijection",
     "ConditionalAffineBijection",
+    "ConditionalPlanarBijection",
+    "CoupledRationalQuadraticSplineBijection",
     "BruteForceInvertible1x1ConvBijection",
+    "IdentityBijection",
+    "InverseBijection",
     "LUInvertible1x1ConvBijection",
     "LULinearBijection",
     "MADEBijection",
+    "MaskedChannelwiseCouplingBijection",
+    "PlanarBijection",
     "rational_quadratic_spline",
     "Bijection",
     "AlternatingChannelwiseCouplingBijection",
@@ -36,6 +52,8 @@ __all__ = [
     "LogitBijection",
     "ScalarAdditionBijection",
     "ScalarMultiplicationBijection",
+    "SumOfSquaresPolynomialBijection",
+    "TanhBijection",
     "FlipBijection",
     "RandomChannelwisePermutationBijection",
     "Squeeze2dBijection",

@@ -2,9 +2,9 @@
 
 Transform convention (reference acl.py:43-46): on the modified half,
 z = (x + t)·exp(s); inverse x = z·exp(−s) − t. Log-jac is Σ s over the
-modified elements. Three masks: alternating-channel (the flat tabular
-schemas), and the checkerboard and split-channel masks of the multiscale
-image schemas.
+modified elements. Four masks: a generic channel mask, the
+alternating-channel mask of the flat tabular schemas, and the checkerboard
+and split-channel masks of the multiscale image schemas.
 """
 
 import numpy as np
@@ -13,19 +13,19 @@ import torch
 from .base import Bijection
 
 
-class AlternatingChannelwiseCouplingBijection(Bijection):
-    """Even channels pass through (odd when reverse_mask) — acl.py:192-214.
-    With 43 channels the even mask passes 22 and modifies 21; the reversed
-    mask passes 21 and modifies 22."""
+class MaskedChannelwiseCouplingBijection(Bijection):
+    """A boolean channel mask, True passing through (acl.py:218-243;
+    ``cmf_tpu/bijections/coupling.py:140-160``); the coupler sees the
+    passthrough channels and returns the other channels' shift and
+    log-scale."""
 
-    def __init__(self, x_shape, coupler_factory, reverse_mask):
+    def __init__(self, x_shape, coupler_factory, mask):
         super().__init__(x_shape=x_shape, z_shape=x_shape)
-        num_channels = x_shape[0]
-        pass_idx = np.arange(1 if reverse_mask else 0, num_channels, 2)
-        mod_idx = np.arange(0 if reverse_mask else 1, num_channels, 2)
-        assert pass_idx.size > 0, "Not a bijection without passthrough"
+        mask = np.asarray(mask, dtype=bool)
+        assert mask.shape == (x_shape[0],)
+        assert mask.any(), "Not a bijection without passthrough"
+        pass_idx, mod_idx = np.nonzero(mask)[0], np.nonzero(~mask)[0]
         self.coupler = coupler_factory(int(pass_idx.size))
-        self.reverse_mask = reverse_mask
         inv = np.argsort(np.concatenate([pass_idx, mod_idx]))
         self.register_buffer("pass_idx", torch.as_tensor(pass_idx), persistent=False)
         self.register_buffer("mod_idx", torch.as_tensor(mod_idx), persistent=False)
@@ -48,6 +48,18 @@ class AlternatingChannelwiseCouplingBijection(Bijection):
         shift, log_scale = self.coupler(passthrough)
         x = self._combine(passthrough, modified * torch.exp(-log_scale) - shift)
         return x, -log_scale.reshape(z.shape[0], -1).sum(dim=1)
+
+
+class AlternatingChannelwiseCouplingBijection(MaskedChannelwiseCouplingBijection):
+    """Even channels pass through (odd when reverse_mask) — acl.py:192-214.
+    With 43 channels the even mask passes 22 and modifies 21; the reversed
+    mask passes 21 and modifies 22."""
+
+    def __init__(self, x_shape, coupler_factory, reverse_mask):
+        mask = np.zeros(x_shape[0], dtype=bool)
+        mask[(1 if reverse_mask else 0) :: 2] = True
+        super().__init__(x_shape, coupler_factory, mask)
+        self.reverse_mask = reverse_mask
 
 
 class Checkerboard2dCouplingBijection(Bijection):

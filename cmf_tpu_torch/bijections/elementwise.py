@@ -1,12 +1,15 @@
-"""Elementwise bijections of the image preprocessing: logit and the scalar
-multiply / add (``cmf_tpu/bijections/elementwise.py:16-91`` in torch).
+"""Elementwise bijections: logit, tanh and the scalar multiply / add of the
+image preprocessing (``cmf_tpu/bijections/elementwise.py:16-91`` in torch).
 
 As in the JAX package, the inverse log-jacobian is evaluated at the
-reconstructed domain point, not at the codomain argument.
+reconstructed domain point, not at the codomain argument, and tanh's
+log-derivative is log tanh'(x) = 2·(log 2 − x − softplus(−2x)), the JAX
+package's fix of the reference's undefined variable.
 """
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .base import Bijection
 
@@ -35,6 +38,20 @@ class LogitBijection(_ElementwiseBijection):
     def _log_df(self, x):
         xc = torch.clamp(x, self._EPS, 1 - self._EPS)
         return -torch.log(xc) - torch.log1p(-xc)
+
+
+class TanhBijection(_ElementwiseBijection):
+    _EPS = 1e-7
+    _LOG2 = float(np.log(2.0))
+
+    def _f(self, x):
+        return torch.tanh(x)
+
+    def _f_inv(self, z):
+        return torch.atanh(torch.clamp(z, -1 + self._EPS, 1 - self._EPS))
+
+    def _log_df(self, x):
+        return 2.0 * (self._LOG2 - x - F.softplus(-2.0 * x))
 
 
 class ScalarMultiplicationBijection(_ElementwiseBijection):

@@ -1,6 +1,7 @@
 """Rational-quadratic spline bijections (neural spline flows,
-``cmf_tpu/bijections/spline.py`` in torch): the spline with linear tails and
-the masked autoregressive spline of the ``nsf-ar`` layer.
+``cmf_tpu/bijections/spline.py`` in torch): the spline with linear tails,
+the coupled spline of the ``nsf-c`` layer and the masked autoregressive
+spline of the ``nsf-ar`` layer.
 
 The spline (Durkan et al. 2019, eqs. 4-8) runs through K+1 knots with K−1
 free interior derivatives and is the identity outside [−B, B]. The
@@ -8,15 +9,14 @@ constants are the JAX package's: minimum bin width, height and derivative
 1e-3, widths and heights softmaxed, derivatives softplus'd. The bin is the
 JAX package's count of the knots ≤ x, less one, clipped to [0, K−1]
 (spline.py:80-83), so the edges fall in the same bin.
-
-The coupled spline (``nsf-c``) is not ported yet.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-from ..nets import AutoregressiveMLP
+from ..nets import AutoregressiveMLP, Dense
 from .base import Bijection
 
 _MIN_BIN_WIDTH = 1e-3
@@ -101,6 +101,74 @@ def rational_quadratic_spline(inputs, uw, uh, ud, tail_bound, inverse=False):
     outputs = torch.where(inside, outputs, inputs)
     log_det = torch.where(inside, log_det, torch.zeros_like(log_det))
     return outputs, log_det
+
+
+class _ResidualBlock(nn.Module):
+    def __init__(self, n_hidden, generator):
+        super().__init__()
+        self.l1 = Dense(n_hidden, n_hidden, generator)
+        self.l2 = Dense(n_hidden, n_hidden, generator)
+
+
+class _ResidualMLP(nn.Module):
+    """Pre-activation residual MLP (spline.py:123-160): dense ``in``, then
+    blocks h + l2(act(l1(act(h)))), then dense ``out``. The JAX tree's key
+    ``in`` is a Python keyword: the layer is registered under that name
+    (``add_module``), so its path stays ``net.in.w``."""
+
+    def __init__(self, n_in, n_hidden, n_blocks, n_out, activation, generator=None):
+        super().__init__()
+        self.activation = activation
+        self.add_module("in", Dense(n_in, n_hidden, generator))
+        self.out = Dense(n_hidden, n_out, generator)
+        self.blocks = nn.ModuleList(_ResidualBlock(n_hidden, generator) for _ in range(n_blocks))
+
+    def forward(self, x):
+        h = getattr(self, "in")(x)
+        for block in self.blocks:
+            h = h + block.l2(self.activation(block.l1(self.activation(h))))
+        return self.out(h)
+
+
+class CoupledRationalQuadraticSplineBijection(Bijection):
+    """RQ-spline coupling over flat inputs with an alternating mask
+    (spline.py:162-227): the even channels pass through (the odd ones with
+    ``reverse_mask``) and a residual MLP of them gives the other half's
+    spline parameters. The inverse is one pass, as the forward is.
+    ``dropout_probability`` is accepted and unused, as in the JAX
+    package."""
+
+    def __init__(self, num_input_channels, num_hidden_layers, num_hidden_channels, num_bins, tail_bound,
+                 activation, dropout_probability=0.0, reverse_mask=False, generator=None):
+        shape = (num_input_channels,)
+        super().__init__(x_shape=shape, z_shape=shape)
+        self.num_bins = num_bins
+        self.tail_bound = float(tail_bound)
+        mask = np.zeros(num_input_channels, dtype=bool)
+        mask[(1 if reverse_mask else 0) :: 2] = True  # the passthrough half
+        pass_idx, mod_idx = np.nonzero(mask)[0], np.nonzero(~mask)[0]
+        self.register_buffer("pass_idx", torch.as_tensor(pass_idx), persistent=False)
+        self.register_buffer("mod_idx", torch.as_tensor(mod_idx), persistent=False)
+        inv = np.argsort(np.concatenate([pass_idx, mod_idx]))
+        self.register_buffer("inv_perm", torch.as_tensor(inv), persistent=False)
+        self.n_mod = int(mod_idx.size)
+        self.params_per_dim = 3 * num_bins - 1
+        self.net = _ResidualMLP(n_in=int(pass_idx.size), n_hidden=num_hidden_channels, n_blocks=num_hidden_layers,
+                                n_out=self.n_mod * self.params_per_dim, activation=activation, generator=generator)
+
+    def _transform(self, x, inverse):
+        passthrough, modified = x[:, self.pass_idx], x[:, self.mod_idx]
+        raw = self.net(passthrough).reshape(x.shape[0], self.n_mod, self.params_per_dim)
+        k = self.num_bins
+        out, log_det = rational_quadratic_spline(modified, raw[..., :k], raw[..., k : 2 * k], raw[..., 2 * k :],
+                                                 self.tail_bound, inverse=inverse)
+        return torch.cat([passthrough, out], dim=1)[:, self.inv_perm], log_det.sum(dim=1)
+
+    def forward(self, x):
+        return self._transform(x, inverse=False)
+
+    def inverse(self, z):
+        return self._transform(z, inverse=True)
 
 
 class AutoregressiveRationalQuadraticSplineBijection(Bijection):

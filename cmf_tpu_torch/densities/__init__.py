@@ -1,6 +1,8 @@
 from .base import Density
+from .concrete import ConcreteConditionalDensity
 from .elbo import ELBODensity
 from .exact import BijectionDensity
+from .mixture import BijectionMixtureDensity
 from .gaussian import (
     DiagonalGaussianConditionalDensity,
     DiagonalGaussianDensity,
@@ -15,6 +17,8 @@ from .wrapper import DequantizationDensity
 __all__ = [
     "Density",
     "BijectionDensity",
+    "BijectionMixtureDensity",
+    "ConcreteConditionalDensity",
     "DequantizationDensity",
     "DiagonalGaussianConditionalDensity",
     "DiagonalGaussianDensity",

@@ -11,6 +11,15 @@ dotted paths agree, with two exceptions (``jax_path``): a shared coupler
 layer's conditional densities (``p_u``, ``q_u``) keep their coupler as
 ``.coupler`` while the JAX tree holds the coupler's params directly. Lists
 of the JAX state (the MADE masks) are buffers named ``0``, ``1``, ....
+The coupled spline's residual MLP keeps the JAX key ``in``, a Python
+keyword, by registering its first layer under that name (``add_module``),
+so ``net.in.w`` needs no rule here.
+
+Two trees load into a submodule, not into the object the JAX package
+initialises: ``ConcreteConditionalDensity.init`` returns its net's
+variables bare, so its tree loads into ``.log_alpha_map``; and
+``InverseBijection.init`` returns the wrapped bijection's, so its tree
+loads into ``.bijection``.
 
 The state comes across too: the tail's and every ``rand-channel-perm``'s
 ``permutation`` / ``inverse_permutation`` above all, since a permutation

@@ -4,14 +4,17 @@ multiscale image non-square schemas use).
 
 Covered: ``dequantization``, ``split``, ``non-square-head`` (exact and
 Hutchinson + CG log-det; the M-flow head with ``m_flow``),
-``non-square-base``, ``affine``, ``flatten``, ``flip``, ``rand-channel-perm``, ``squeeze``, ``logit``, ``scalar-mult``,
+``non-square-base``, ``affine``, ``flatten``, ``flip``, ``rand-channel-perm``,
+``squeeze``, ``logit``, ``tanh``, ``scalar-mult``,
 ``scalar-add``, ``acl`` with alternating-channel, checkerboard and
 split-channel masks, ``made``, ``linear`` (LU), ``invconv`` (LU or free),
-``nsf-ar``, and a layer with u-channels (``cond-affine``: the CIF
-``ELBODensity`` with its p(u|z) and q(u|x), on flat or image shapes), MLP,
-ResNet (with or without batch-norm) and GlowCNN couplers, and the standard
-Gaussian. Any other layer type, mask, net or option raises
-``NotImplementedError`` naming it.
+``sos``, ``nsf-ar``, ``nsf-c``, ``bnaf``, ``planar``, and a layer with
+u-channels (``cond-affine``, ``cond-planar``: the CIF ``ELBODensity`` with
+its p(u|z) and q(u|x), on flat or image shapes), MLP, ResNet (with or
+without batch-norm), GlowCNN, constant and identity coupler nets, and the
+standard Gaussian. Any other layer type (``batch-norm``), the ``acl`` layer
+with u-channels, or another mask or net raises ``NotImplementedError``
+naming it.
 
 Weights are drawn from ``generator`` (a ``torch.Generator``, seeded by the
 caller), then the tree moves to ``device``. They are the port's own draws:
@@ -24,19 +27,25 @@ from ..bijections import (
     AffineBijection,
     AlternatingChannelwiseCouplingBijection,
     AutoregressiveRationalQuadraticSplineBijection,
+    BlockNeuralAutoregressiveBijection,
     BruteForceInvertible1x1ConvBijection,
     Checkerboard2dCouplingBijection,
     ConditionalAffineBijection,
+    ConditionalPlanarBijection,
+    CoupledRationalQuadraticSplineBijection,
     FlipBijection,
     LogitBijection,
     LUInvertible1x1ConvBijection,
     LULinearBijection,
     MADEBijection,
+    PlanarBijection,
     RandomChannelwisePermutationBijection,
     ScalarAdditionBijection,
     ScalarMultiplicationBijection,
     SplitChannelwiseCouplingBijection,
     Squeeze2dBijection,
+    SumOfSquaresPolynomialBijection,
+    TanhBijection,
     ViewBijection,
 )
 from ..couplers import ChunkedSharedCoupler, IndependentCoupler
@@ -51,7 +60,7 @@ from ..densities import (
     NonSquareTailDensity,
     SplitDensity,
 )
-from ..nets import MLP, GlowCNN, ResNet, get_activation
+from ..nets import MLP, ConstantNetwork, GlowCNN, IdentityNetwork, ResNet, get_activation
 
 
 def _later(what):
@@ -159,6 +168,8 @@ def get_bijection(layer_config, x_shape, generator):
         return Squeeze2dBijection(x_shape=x_shape, factor=layer_config["factor"])
     if ty == "logit":
         return LogitBijection(x_shape=x_shape)
+    if ty == "tanh":
+        return TanhBijection(x_shape=x_shape)
     if ty == "scalar-mult":
         return ScalarMultiplicationBijection(x_shape=x_shape, value=layer_config["value"])
     if ty == "scalar-add":
@@ -201,6 +212,51 @@ def get_bijection(layer_config, x_shape, generator):
             tail_bound=layer_config["tail_bound"],
             activation=get_activation(layer_config["activation"]),
             dropout_probability=layer_config["dropout_probability"],
+            generator=generator,
+        )
+    if ty == "nsf-c":
+        assert len(x_shape) == 1
+        return CoupledRationalQuadraticSplineBijection(
+            num_input_channels=x_shape[0],
+            num_hidden_layers=layer_config["num_hidden_layers"],
+            num_hidden_channels=layer_config["num_hidden_channels"],
+            num_bins=layer_config["num_bins"],
+            tail_bound=layer_config["tail_bound"],
+            activation=get_activation(layer_config["activation"]),
+            dropout_probability=layer_config["dropout_probability"],
+            reverse_mask=layer_config["reverse_mask"],
+            generator=generator,
+        )
+    if ty == "sos":
+        assert len(x_shape) == 1
+        return SumOfSquaresPolynomialBijection(
+            num_input_channels=x_shape[0],
+            hidden_channels=layer_config["hidden_channels"],
+            activation=get_activation(layer_config["activation"]),
+            num_polynomials=layer_config["num_polynomials"],
+            polynomial_degree=layer_config["polynomial_degree"],
+            generator=generator,
+        )
+    if ty == "bnaf":
+        assert len(x_shape) == 1
+        return BlockNeuralAutoregressiveBijection(
+            num_input_channels=x_shape[0],
+            num_hidden_layers=layer_config["num_hidden_layers"],
+            hidden_channels_factor=layer_config["hidden_channels_factor"],
+            activation=layer_config["activation"],
+            residual=layer_config["residual"],
+            generator=generator,
+        )
+    if ty == "planar":
+        assert len(x_shape) == 1
+        return PlanarBijection(num_input_channels=x_shape[0], generator=generator)
+    if ty == "cond-planar":
+        assert len(x_shape) == 1
+        return ConditionalPlanarBijection(
+            num_input_channels=x_shape[0],
+            num_u_channels=layer_config["num_u_channels"],
+            cond_hidden_channels=layer_config["cond_hidden_channels"],
+            cond_activation=get_activation(layer_config["cond_activation"]),
             generator=generator,
         )
     raise _later(f"layer type `{ty}'")
@@ -279,6 +335,13 @@ def get_coupler_net(input_shape, num_output_channels, net_config, generator):
             zero_init_output=net_config["zero_init_output"],
             generator=generator,
         )
+    if ty == "constant":
+        return ConstantNetwork(
+            shape=(num_output_channels, *input_shape[1:]), value=net_config["value"], fixed=net_config["fixed"]
+        )
+    if ty == "identity":
+        assert num_output_channels == input_shape[0]
+        return IdentityNetwork()
     if ty != "mlp":
         raise _later(f"coupler net type `{ty}'")
     assert len(input_shape) == 1

@@ -2,9 +2,11 @@ from .core import (
     MLP,
     AutoregressiveMLP,
     BatchNorm2d,
+    ConstantNetwork,
     Conv,
     Dense,
     GlowCNN,
+    IdentityNetwork,
     ResNet,
     batch_statistics,
     get_activation,
@@ -14,9 +16,11 @@ __all__ = [
     "MLP",
     "AutoregressiveMLP",
     "BatchNorm2d",
+    "ConstantNetwork",
     "Conv",
     "Dense",
     "GlowCNN",
+    "IdentityNetwork",
     "ResNet",
     "batch_statistics",
     "get_activation",

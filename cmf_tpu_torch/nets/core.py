@@ -1,6 +1,6 @@
-"""Coupler networks (``cmf_tpu/nets/core.py`` in torch): the flat MLP, the
-masked autoregressive MLP of MADE and the AR spline, the conv ResNet with
-or without batch-norm, and GlowCNN.
+"""Coupler networks (``cmf_tpu/nets/core.py`` in torch): the constant and
+identity nets, the flat MLP, the masked autoregressive MLP of MADE, sos and
+the AR spline, the conv ResNet with or without batch-norm, and GlowCNN.
 
 Weights keep the JAX package's layouts, so JAX weights load with no
 transposes (``interop.py``): dense ``w`` of shape (in, out) applied as
@@ -58,6 +58,32 @@ class Dense(nn.Module):
 
     def forward(self, x):
         return x @ self.w + self.b
+
+
+class ConstantNetwork(nn.Module):
+    """A constant output of ``shape`` a row, whatever the input
+    (nets/core.py:110-126): ``value`` is a parameter, or with ``fixed`` a
+    persistent buffer (the JAX net's state)."""
+
+    def __init__(self, shape, value=0.0, fixed=False):
+        super().__init__()
+        self.shape = tuple(shape)
+        self.fixed = fixed
+        v = torch.full(self.shape, float(value))
+        if fixed:
+            self.register_buffer("value", v)
+        else:
+            self.value = nn.Parameter(v)
+
+    def forward(self, x):
+        return self.value.expand(x.shape[0], *self.shape)
+
+
+class IdentityNetwork(nn.Module):
+    """The input itself (nets/core.py:129-134)."""
+
+    def forward(self, x):
+        return x
 
 
 class MLP(nn.Module):

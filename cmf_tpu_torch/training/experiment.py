@@ -52,11 +52,10 @@ def _later(what):
     return NotImplementedError(f"{what} waits for a later slice of the port")
 
 
-# Layer types of the JAX package's schemas that the port does not build yet
-# (ROADMAP module 8; batch-norm and its passthrough wrapper are module 6).
-WAITING_LAYERS = ("batch-norm", "passthrough-before-eval", "sos", "bnaf", "planar", "cond-planar",
-                  "nsf-c")
-COUPLER_NETS = ("mlp", "resnet", "glow-cnn")
+# Layer types of the JAX package's schemas that the port does not build yet:
+# batch-norm and its passthrough wrapper (ROADMAP module 6).
+WAITING_LAYERS = ("batch-norm", "passthrough-before-eval")
+COUPLER_NETS = ("mlp", "resnet", "glow-cnn", "constant", "identity")
 _COUPLER_KEYS = ("coupler", "st_coupler", "p_coupler", "q_coupler")
 
 
@@ -71,8 +70,10 @@ def _coupler_nets(layer):
 
 def check_schema(schema):
     """Raise naming every layer type of ``schema`` that waits for a later
-    slice (in ``WAITING_LAYERS``' order), else the first layer option or
-    coupler net that does. A non-square model's couplers stay batch-norm-free
+    slice (in ``WAITING_LAYERS``' order: ``batch-norm`` and
+    ``passthrough-before-eval``), else the first layer option or coupler net
+    that does (an ``acl`` layer with u-channels; a net type outside
+    ``COUPLER_NETS``). A non-square model's couplers stay batch-norm-free
     (a ResNet with ``batchnorm`` or a GlowCNN is refused there):
     its decode reads the statistics of the encoder's forward
     (``cmf_tpu/densities/nonsquare.py:104-114``), which waits with the rest

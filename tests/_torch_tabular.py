@@ -83,11 +83,12 @@ def rel_err(got, want):
     return err / scale if scale else err
 
 
-def assert_grads_close(module, want_tree, tol, prefix=""):
+def assert_grads_close(module, want_tree, tol, prefix="", path=jax_path):
     """Every parameter gradient of ``module`` against the JAX gradient tree,
-    max err over max |ref| per tensor."""
+    max err over max |ref| per tensor; ``path`` maps a port name to its JAX
+    path."""
     want = flatten_tree(to_numpy(want_tree))
-    got = {jax_path(prefix + n): p.grad.numpy() for n, p in module.named_parameters()}
+    got = {path(prefix + n): p.grad.numpy() for n, p in module.named_parameters()}
     assert set(got) == set(want)
     for k in want:
         assert rel_err(got[k], want[k]) <= tol, (k, rel_err(got[k], want[k]))
@@ -97,22 +98,22 @@ def t(a):
     return torch.tensor(np.asarray(a))
 
 
-def bijection_pair(jax_bij, port_bij, seed):
+def bijection_pair(jax_bij, port_bij, seed, load=variables_from_jax):
     variables = jax_bij.init(jax.random.PRNGKey(seed))
     # Move every parameter off its init so that each one is exercised.
     leaves, treedef = jax.tree.flatten(variables["params"])
     keys = jax.random.split(jax.random.PRNGKey(seed + 100), len(leaves))
     leaves = [p + 0.1 * jax.random.normal(k, p.shape) for p, k in zip(leaves, keys)]
     variables = {"params": jax.tree.unflatten(treedef, leaves), "state": variables["state"]}
-    variables_from_jax(port_bij, to_numpy(variables))
+    load(port_bij, to_numpy(variables))
     return variables
 
 
-def check_bijection(jax_bij, port_bij, x, seed=0, inverse_tol=INV_TOL, round_trip_tol=None):
+def check_forward(jax_bij, port_bij, x, seed=0, load=variables_from_jax, path=jax_path):
     """Forward values, log-jacobians and gradients (of a random linear
-    functional of both, in the parameters and the input), the inverse, and
-    where asked the round trip."""
-    variables = bijection_pair(jax_bij, port_bij, seed)
+    functional of both, in the parameters and the input) against the JAX
+    bijection on the same weights; returns (JAX variables, JAX z)."""
+    variables = bijection_pair(jax_bij, port_bij, seed, load)
     r = np.random.default_rng(seed + 1)
     wz = r.normal(size=x.shape).astype(np.float32)
     wl = r.normal(size=x.shape[0]).astype(np.float32)
@@ -133,8 +134,15 @@ def check_bijection(jax_bij, port_bij, x, seed=0, inverse_tol=INV_TOL, round_tri
     assert rel_err(z_t.detach().numpy(), z_j) <= FWD_TOL
     assert rel_err(lj_t.detach().numpy(), lj_j) <= FWD_TOL
     assert rel_err(xt.grad.numpy(), g_x) <= GRAD_TOL
-    assert_grads_close(port_bij, g_params, GRAD_TOL)
+    assert_grads_close(port_bij, g_params, GRAD_TOL, path=path)
+    return variables, z_j
 
+
+def check_bijection(jax_bij, port_bij, x, seed=0, inverse_tol=INV_TOL, round_trip_tol=None,
+                    load=variables_from_jax, path=jax_path):
+    """``check_forward``, then the inverse, and where asked the round
+    trip."""
+    variables, z_j = check_forward(jax_bij, port_bij, x, seed, load, path)
     x_j, lji_j = jax.jit(lambda v, zz: jax_bij.inverse(v, zz))(variables, z_j)
     with torch.no_grad():
         x_t, lji_t = port_bij.inverse(t(z_j))

@@ -109,6 +109,7 @@ def test_unported_layer_raises_naming_it():
     from cmf_tpu_torch.models import get_density
 
     schema = small_schema()
-    schema.insert(2, {"type": "planar"})
-    with pytest.raises(NotImplementedError, match="`planar'"):
+    schema.insert(2, {"type": "batch-norm", "per_channel": True, "momentum": 0.1, "apply_affine": True,
+                      "detach": False})
+    with pytest.raises(NotImplementedError, match="`batch-norm'"):
         get_density(schema, x_shape=(11,), device="cpu")

@@ -13,6 +13,7 @@ from cmf_tpu.config import expand_grid, get_config
 from cmf_tpu.data.loaders import ArrayLoader as JaxArrayLoader
 from cmf_tpu.data.loaders import get_loaders as jax_get_loaders
 from cmf_tpu.training.objectives import get_objective as jax_get_objective
+from cmf_tpu_torch.config import get_schema
 from cmf_tpu_torch.data import ArrayLoader, get_loaders
 from cmf_tpu_torch.main import main
 from cmf_tpu_torch.interop import flatten_tree
@@ -140,6 +141,10 @@ _PORTED = [
     (lambda: _published("cond-affine"), "cond-affine-miniboone"),
     (lambda: _published("glow", "mnist"), "glow-mnist"),
     (lambda: _published("realnvp", "mnist"), "realnvp-mnist"),
+    (lambda: _published("bnaf", "2uniforms"), "bnaf-2uniforms"),
+    (lambda: _published("planar", "2uniforms", baseline=True), "planar-2uniforms-baseline"),
+    (lambda: _published("planar", "2uniforms"), "planar-2uniforms"),
+    (lambda: _published("nsf-ar", baseline=True, autoregressive=False), "nsf-c-miniboone-baseline"),
 ]
 # (config, id, what the refusal must name): one case per layer type that
 # waits, each from a published config that has it.
@@ -148,11 +153,9 @@ _UNPORTED = [
     (lambda: _flagship(compute_dtype="bfloat16"), "compute_dtype-bfloat16", "compute_dtype"),
     (lambda: _published("realnvp", baseline=True), "realnvp-miniboone-baseline", "`batch-norm'"),
     (lambda: _published("maf", baseline=True), "maf-miniboone-baseline", "`passthrough-before-eval'"),
-    (lambda: _published("sos", baseline=True), "sos-miniboone-baseline", "`sos'"),
-    (lambda: _published("bnaf", "2uniforms"), "bnaf-2uniforms", "`bnaf'"),
-    (lambda: _published("planar", "2uniforms", baseline=True), "planar-2uniforms-baseline", "`planar'"),
-    (lambda: _published("planar", "2uniforms"), "planar-2uniforms", "`cond-planar'"),
-    (lambda: _published("nsf-ar", baseline=True, autoregressive=False), "nsf-c-miniboone-baseline", "`nsf-c'"),
+    # The tabular sos has batch-norm and its passthrough wrapper: refused
+    # for them alone.
+    (lambda: _published("sos", baseline=True), "sos-miniboone-baseline", "`batch-norm'"),
     (lambda: _published("non-square", "mnist", resnet_batchnorm=True), "non-square-mnist-resnet_batchnorm-True",
      "non-square model with batch-norm `resnet' couplers"),
 ]
@@ -186,10 +189,34 @@ def test_acl_with_u_channels_is_refused():
 def test_ported_config_passes(make):
     """mnist's metric and centering analyses into a run dir (matplotlib
     imports here), the M-flow baseline, the optimizer options, the
-    tabular square NSF and CIFs, and the image square flow and CIF with
-    their invconvs, GlowCNN and batch-norm ResNet couplers, with their
+    tabular square NSF and CIFs, the image square flow and CIF with
+    their invconvs, GlowCNN and batch-norm ResNet couplers, and the 2-D
+    zoo's BNAF and planar flows and the coupled spline, with their
     published settings."""
     check_supported(make())
+
+
+@pytest.mark.parametrize("nets, net_type", [
+    ({"p_nets": "learned-constant", "q_nets": "fixed-constant"}, "constant"),
+    ({"p_nets": "identity"}, "identity"),
+], ids=["constant", "identity"])
+def test_constant_and_identity_coupler_nets_build(nets, net_type):
+    """``--config p_nets=learned-constant|identity`` and ``q_nets=
+    fixed-constant`` on the 2-D CIF-MAF: the config check passes, the
+    factory builds the nets (the identity's 2 inputs are u's mean and
+    log-stddev) and the elbo is finite."""
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.nets import ConstantNetwork, IdentityNetwork
+
+    config = _published("maf", "2uniforms", **nets)
+    schema = get_schema(config)
+    assert net_type in {layer["p_coupler"]["shift_log_scale_net"]["type"] for layer in schema if "p_coupler" in layer}
+    check_supported(config)
+    density = get_density(schema, x_shape=(2,), device="cpu", generator=torch.Generator().manual_seed(0))
+    cls = ConstantNetwork if net_type == "constant" else IdentityNetwork
+    assert sum(isinstance(m, cls) for m in density.modules()) == (10 if net_type == "constant" else 5)
+    x = torch.randn(16, 2, generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(density.elbo(x, generator=torch.Generator().manual_seed(2))["elbo"]).all()
 
 
 def test_mnist_published_defaults_pass():

@@ -216,6 +216,33 @@ Phases, each of which fails the run on its own failure:
                   sos layer at the published tabular widths (D = 43, [200]x2,
                   K = 5, r = 4) over 1000 rows, card against CPU, with the
                   finite rows of the published 8 layers without batch-norm.
+21. hutch-gram -- the flagship's Hutchinson run (``--config
+                  log_jacobian_method=hutch_with_cg``), whose 'auto' solver is
+                  the exact Gram: into a run dir with the published warm-up
+                  for 28 epochs of 2 batches (the likelihood from epoch index
+                  26, one graph a flag key, the probes drawn inside the
+                  graph; no Gram/log-det launch, since a FID dataset's
+                  non-square run validates by FID and tests a zero loss),
+                  resumed one epoch and ``--test --resume``d; with
+                  ``likelihood_warmup=False`` (FID validation at epochs 1
+                  and 2); the sphere's Hutchinson run, whose Gram/log-det
+                  forward launches must equal its evaluation batches (no
+                  backward launch); 10 captured against 10 eager steps; ms a
+                  captured step beside the exact step's, its idle share, an
+                  eager step; a card step against the CPU on the same probes.
+22. batchnorm  -- the published tabular batch-norm models on miniboone
+                  (``--model realnvp``, ``realnvp --baseline``, ``maf
+                  --baseline``, ``sos --baseline`` validated by -log-prob,
+                  since sos has no inverse and so no FID) at their widths and
+                  depths into run dirs, one epoch of 3 steps: one graph each,
+                  a refresh over the stored rows before each evaluation, no
+                  Gram/log-det or coupler launch; each resumed and tested;
+                  for each, 3 captured against 3 eager steps (the statistics
+                  too), ms a captured step and its idle share, a card step
+                  against the CPU, a test pass that leaves the training
+                  statistics bit-equal, one refresh over the whole synthetic
+                  train split timed; sos's finite rows at init with its
+                  batch-norm.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -542,6 +569,42 @@ AR_NSF_SAMPLE_MS = 1102.21
 SOS_TABULAR = {"type": "sos", "hidden_channels": [200, 200], "activation": "tanh", "num_polynomials": 5,
                "polynomial_degree": 4}
 SOS_TABULAR_LAYERS, SOS_TABULAR_BATCH = 8, 1000
+# The flagship's Hutchinson run (``--config log_jacobian_method=hutch_with_cg``,
+# every other setting published), whose 'auto' solver is the exact Gram:
+# into a run dir with the published warm-up (25 -> 50), cut to HUTCH_EPOCHS
+# epochs of 2 batches of 400, so epoch index 26 is the first through the
+# solver; FID tests at epochs 1, 6, ..., 26 on 10,000 samples.
+HUTCH_ARGV = ["--model", "non-square", "--dataset", "miniboone", "--synthetic-data",
+              "--config", "log_jacobian_method=hutch_with_cg", "--config", "seed=0"]
+HUTCH_EPOCHS, HUTCH_ROWS = 28, 800
+# Its steps alone, the likelihood on from step 1: 10 batches of 400.
+HUTCH_STEPS_ARGV = HUTCH_ARGV + ["--nosave", "--config", "likelihood_warmup=False", "--config", "max_dataset_size=4000",
+                                 "--config", "early_stopping=False", "--config", "use_fid=False"]
+# The sphere's Hutchinson run (published 2-D defaults otherwise): validation
+# by -elbo every epoch and a test at epoch 1, both through the exact log-det.
+HUTCH_SPHERE_ARGV = ["--model", "non-square", "--dataset", "sphere", "--nosave",
+                     "--config", "log_jacobian_method=hutch_with_cg", "--config", "max_epochs=3", "--config", "seed=0"]
+# The published tabular batch-norm models (``config/defaults/tabular.py``:
+# batch-norm without affine in the CIF, with it under --baseline; momentum 1
+# under the passthrough wrapper's 100,000 stored rows) on miniboone at their
+# widths and depths: (tag, CLI model arguments). sos has no inverse, so no
+# sample and no FID (ROADMAP §3): it validates by -log-prob.
+BATCHNORM_RUNS = [
+    ("realnvp", ["--model", "realnvp"]),
+    ("realnvp --baseline", ["--model", "realnvp", "--baseline"]),
+    ("maf --baseline", ["--model", "maf", "--baseline"]),
+    ("sos --baseline", ["--model", "sos", "--baseline", "--config", "use_fid=False"]),
+]
+# Every split capped at 3,000 rows (3 steps of the published 1,000), one
+# epoch into a run dir; the refresh timed over the whole synthetic train
+# split (all of it stored).
+BATCHNORM_ROWS, BATCHNORM_EPOCHS = 3000, 1
+# sos's degree-9 polynomials overflow on about 1% of held-out rows through
+# the snapshot statistics, on the same rows in both packages
+# (tests/test_torch_batchnorm.py::test_sos_overflows_in_evaluation_as_cmf_tpu_does):
+# its validation and test means are not finite, and the phase holds the
+# card's overflowing rows to the CPU's instead.
+EVAL_OVERFLOWS = ("sos --baseline",)
 
 
 def rel_err(got, ref):
@@ -2587,9 +2650,15 @@ def nosave_setup(model_args, dataset, cap, epochs):
     return experiment.setup_experiment(config, write_to_disk=False)
 
 
-def square_cif_resume_and_test(tag, run_dir, epochs, steps, phase="square-cif"):
+SQUARE_METRICS = ("elbo", "log-prob", "bpd", "elbo-gap", "fid")
+
+
+def square_cif_resume_and_test(tag, run_dir, epochs, steps, phase="square-cif", metrics=SQUARE_METRICS,
+                               finite=True):
     """A copy of the run dir trained one more epoch (its restored state
-    bit-equal to ``latest``), then ``--test --resume`` on the run dir."""
+    bit-equal to ``latest``), then ``--test --resume`` on the run dir, whose
+    ``metrics.json`` must hold ``metrics``, finite unless ``finite`` is
+    off."""
     import torch
     from cmf_tpu_torch.main import main as cli_main
     from cmf_tpu_torch.training import experiment
@@ -2629,8 +2698,8 @@ def square_cif_resume_and_test(tag, run_dir, epochs, steps, phase="square-cif"):
     print(f"[{phase}] {tag}: --test --resume from `{tested['trainer'].restored_from}' "
           f"({tested['config']['num_fid_samples']:,} FID samples): metrics.json {shown}; {test_s:.4f} s")
     numbers = [v for k, v in results.items() if k != "feature_extractor"]
-    assert {"elbo", "log-prob", "bpd", "elbo-gap", "fid"} <= set(results), f"{tag}: metrics.json lacks a metric"
-    assert all(math.isfinite(v) for v in numbers), f"{tag}: non-finite test metric"
+    assert set(metrics) <= set(results), f"{tag}: metrics.json lacks a metric"
+    assert all(math.isfinite(v) for v in numbers) or not finite, f"{tag}: non-finite test metric"
 
 
 def square_cif_run_checks(smi, label, model_args, epochs, setup, seconds, phase="square-cif"):
@@ -3198,6 +3267,236 @@ def phase_square_2d(smi, root):
     print(f"[square-2d] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+def hutch_head(density):
+    from cmf_tpu_torch.densities import NonSquareHeadDensity
+
+    return next(m for m in density.modules() if isinstance(m, NonSquareHeadDensity))
+
+
+def phase_hutch_gram(smi, root, exact_step_ms):
+    """The flagship's Hutchinson run through the exact-Gram solver: into a
+    run dir across the warm-up's first likelihood epoch (one graph a flag
+    key, the probes drawn inside the graph), resumed and tested; with the
+    likelihood from step 1; the sphere's, whose validation and test take
+    the Gram/log-det forward kernel; 10 captured against 10 eager steps;
+    the step's ms and idle share beside the exact step's; a card step
+    against the CPU on the same probes."""
+    import torch
+    from cmf_tpu_torch.densities import elbo
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    phase_t0 = time.perf_counter()
+    streams = sys.stdout, sys.stderr
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        (setup,) = cli_main(HUTCH_ARGV + ["--logdir-root", root, "--config", f"max_epochs={HUTCH_EPOCHS}",
+                                          "--config", f"max_dataset_size={HUTCH_ROWS}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = gl.launch_counts(), cs.LAUNCHES
+        _restore_streams(streams)
+        trainer, head = setup["trainer"], hutch_head(setup["density"])
+        history, run_dir = trainer.history, setup["writer"].logdir
+        tests = _scalar_steps(run_dir, "test/fid")
+        lik_epochs = sorted({h[0] for h in history if not h[3]})
+        print(f"[hutch-gram] {smi}: miniboone, log_jacobian_method=hutch_with_cg: solver "
+              f"{head._resolved_hutch_solver(head.latent_dimension)!r} (d={head.latent_dimension}); "
+              f"{len(history)} steps over {trainer.epoch} epochs, the likelihood from epoch {lik_epochs[0]}; "
+              f"losses {history[0][1]:.6g} -> {history[-1][1]:.6g}; {len(captured_steps(trainer))} graph(s); "
+              f"test/fid at {sorted(tests)}: {', '.join(f'{v:.6g}' for _, v in sorted(tests.items()))}; "
+              f"Gram/log-det launches (fwd, bwd) {launches[0]}, coupler {launches[1]}; the run {seconds:.4f} s")
+        assert head._resolved_hutch_solver(head.latent_dimension) == "gram" and elbo.GRAPH_SAFE_GENERATORS
+        assert all(math.isfinite(h[1]) for h in history), "non-finite loss in the Hutchinson run"
+        assert lik_epochs == list(range(26, HUTCH_EPOCHS + 1)), "the likelihood did not start at epoch index 26"
+        assert trainer.captured and len(captured_steps(trainer)) == 2, "not one graph a flag key"
+        assert sorted(tests) == [1, 6, 11, 16, 21, 26] and all(math.isfinite(v) for v in tests.values())
+        # miniboone is a FID dataset: a non-square run's validation is the
+        # FID and its test loss zero, as in cmf_tpu, so no evaluation takes
+        # a log-det here (the sphere's below does).
+        assert launches == ((0, 0), 0), "a kernel launched on the miniboone Hutchinson run"
+        square_cif_resume_and_test("miniboone hutch", run_dir, HUTCH_EPOCHS, len(trainer.train_loader),
+                                   phase="hutch-gram", metrics=("loss", "fid"))
+        _restore_streams(streams)
+
+        with _Recorded() as rec:
+            (setup_nw,) = cli_main(HUTCH_ARGV + ["--nosave", "--config", "likelihood_warmup=False",
+                                                 "--config", "max_epochs=2", "--config", f"max_dataset_size={HUTCH_ROWS}"])
+        _restore_streams(streams)
+        valid = rec.steps("valid/loss")
+        history_nw = setup_nw["trainer"].history
+        print(f"[hutch-gram] likelihood_warmup=False: {len(history_nw)} steps, losses "
+              f"{', '.join(f'{h[1]:.6g}' for h in history_nw)}; valid/loss (FID) at {sorted(valid)}: "
+              f"{', '.join(f'{v:.6g}' for _, v in sorted(valid.items()))}")
+        assert not any(h[3] for h in history_nw) and all(math.isfinite(h[1]) for h in history_nw)
+        assert sorted(valid) == [1, 2] and all(math.isfinite(v) for v in valid.values())
+        assert len(captured_steps(setup_nw["trainer"])) == 1
+
+        with _Recorded() as rec:
+            gl.reset_launch_counts()
+            (sphere,) = cli_main(HUTCH_SPHERE_ARGV)
+            torch.cuda.synchronize()
+            fwd, bwd = gl.launch_counts()
+        _restore_streams(streams)
+        st = sphere["trainer"]
+        valid, test = rec.steps("valid/loss"), rec.steps("test/loss")
+        evals = len(valid) * len(st.valid_loader) + len(test) * len(st.test_loader)
+        print(f"[hutch-gram] sphere, hutch_with_cg: solver {hutch_head(sphere['density'])._resolved_hutch_solver(2)!r}; "
+              f"{len(st.history)} steps, {len(captured_steps(st))} graph(s); valid/loss (-elbo) "
+              f"{', '.join(f'{v:.6g}' for _, v in sorted(valid.items()))}, test/loss {test}; Gram/log-det "
+              f"launches (fwd, bwd) {fwd}, {bwd} for {evals} evaluation batches")
+        assert all(math.isfinite(h[1]) for h in st.history) and st.captured and len(captured_steps(st)) == 1
+        assert all(math.isfinite(v) for v in list(valid.values()) + list(test.values()))
+        assert fwd == evals > 0 and bwd == 0, "forward launches != evaluation batches on the sphere's run"
+    finally:
+        _restore_streams(streams)
+
+    captured, eager, flags, batches = captured_vs_eager(HUTCH_STEPS_ARGV, "hutch-gram")
+    x = batches[0]
+    replay_ms = cuda_ms(lambda: captured.step(x, flags), iters=50, warmup=3)
+    print(f"[hutch-gram] {smi}: captured Hutchinson step {replay_ms:.4f} ms back to back (CUDA events), "
+          f"{x.shape[0] / replay_ms * 1e3:.1f} samples/s, against the exact step's {exact_step_ms:.4f} ms "
+          f"(train phase)")
+    profile_steps(captured.step, x, flags, 5, "hutch-gram", "captured: ")
+    step_time(eager.eager_step, x, flags, 5, "hutch-gram", "eager: ")
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    eps = torch.randn(x.shape[0], hutch_head(setup_nw["density"]).latent_dimension, 1, generator=gen, device=x.device)
+    card_vs_cpu(setup_nw, x, setup_nw["trainer"].objective.for_epoch(1), "hutch-gram", STEP_LOSS_TOL, STEP_GRAD_TOL,
+                hutchinson_eps=eps)
+    print(f"[hutch-gram] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
+def bn_buffers(density):
+    """The floating-point buffers of ``density`` (the batch-norm
+    statistics), cloned."""
+    return [b.detach().clone() for b in density.buffers() if b.is_floating_point()]
+
+
+def phase_batchnorm(smi, root):
+    """The published tabular batch-norm models on the card: each command
+    into a run dir (a refresh over the stored rows before each validation
+    and test), no Gram/log-det or coupler launch, each resumed and tested;
+    then for each, captured steps against eager ones (the statistics
+    moved inside the graph), ms a step and its idle share, a card step
+    against the CPU, a test pass that leaves the training state as it was,
+    and one refresh over the whole synthetic train split timed."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.nets import batch_statistics
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    phase_t0 = time.perf_counter()
+    streams = sys.stdout, sys.stderr
+    runs = []
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        cs.reset_launch_counts()
+        for tag, model_args in BATCHNORM_RUNS:
+            t0 = time.perf_counter()
+            (setup,) = cli_main(square_cif_argv(model_args, BATCHNORM_ROWS, BATCHNORM_EPOCHS) + ["--logdir-root", root])
+            torch.cuda.synchronize()
+            runs.append((tag, model_args, setup, time.perf_counter() - t0))
+            _restore_streams(streams)
+        launches = gl.launch_counts(), cs.LAUNCHES
+
+        for tag, model_args, setup, seconds in runs:
+            trainer, density, config = setup["trainer"], setup["density"], setup["config"]
+            history, run_dir = trainer.history, setup["writer"].logdir
+            valid = _scalar_steps(run_dir, "valid/loss")
+            test = _scalar_steps(run_dir, "test/log-prob")
+            fid = config["use_fid"]
+            refreshes = trainer.timings["refresh"][0]
+            print(f"[batchnorm] {smi}: {tag}: {type(density.density).__name__} under the passthrough wrapper, "
+                  f"{density.passthrough_x.shape[0]} stored rows, {sum(p.numel() for p in density.parameters()):,} "
+                  f"parameters; {len(history)} steps, losses {', '.join(f'{h[1]:.6g}' for h in history)}; route "
+                  f"{'captured' if trainer.captured else 'eager'}, {len(captured_steps(trainer))} graph(s); "
+                  f"valid/loss ({'FID' if fid else '-log-prob'}) {valid}, test/log-prob {test}; {refreshes} "
+                  f"refreshes, {trainer.timings['refresh'][1] / refreshes * 1e3:.4f} ms each; the run {seconds:.4f} s")
+            assert all(math.isfinite(h[1]) for h in history), f"{tag}: non-finite training loss"
+            assert len(history) == 3 * BATCHNORM_EPOCHS and density.passthrough_x.shape[0] == BATCHNORM_ROWS
+            assert trainer.captured and len(captured_steps(trainer)) == 1, f"{tag}: not one graph"
+            assert sorted(valid) == sorted(test) == [1], f"{tag}: no validation and test at epoch 1"
+            assert tag in EVAL_OVERFLOWS or all(math.isfinite(v) for v in list(valid.values()) + list(test.values())), \
+                f"{tag}: non-finite validation or test"
+            # A validation, then the test's metrics, its FID and the
+            # (tabular: drawing nothing) visualiser, each after a refresh.
+            assert refreshes == len(valid) + (3 if fid else 2), f"{tag}: refreshes != evaluations"
+        print(f"[batchnorm] Gram/log-det launches (fwd, bwd) {launches[0]} and coupler launches {launches[1]} "
+              f"over the {len(runs)} runs")
+        assert launches == ((0, 0), 0), "a kernel launched on the batch-norm runs"
+
+        for tag, model_args, setup, _ in runs:
+            metrics = SQUARE_METRICS if setup["config"]["use_fid"] else SQUARE_METRICS[:-1]
+            square_cif_resume_and_test(tag, setup["writer"].logdir, BATCHNORM_EPOCHS, 3, phase="batchnorm",
+                                       metrics=metrics, finite=tag not in EVAL_OVERFLOWS)
+            _restore_streams(streams)
+    finally:
+        _restore_streams(streams)
+
+    for tag, model_args in BATCHNORM_RUNS:
+        probe = nosave_setup(model_args, "miniboone", BATCHNORM_ROWS, BATCHNORM_EPOCHS)
+        second = nosave_setup(model_args, "miniboone", BATCHNORM_ROWS, BATCHNORM_EPOCHS)
+        captured, eager, flags, batches = trainers_captured_vs_eager(probe["trainer"], second["trainer"],
+                                                                     f"batchnorm {tag}")
+        state_rel = max_rel_diff(bn_buffers(captured.density), bn_buffers(eager.density))
+        print(f"[batchnorm] {tag}: the batch-norm statistics after the captured steps against the eager "
+              f"ones: max rel diff {state_rel:.3e}")
+        assert state_rel <= CAPTURED_TOL, f"{tag}: the captured statistics drift"
+        x = batches[0]
+        replay_ms = cuda_ms(lambda: captured.step(x, flags), iters=20, warmup=2)
+        print(f"[batchnorm] {smi}: {tag}, captured: {replay_ms:.4f} ms per step back to back (CUDA events), "
+              f"{x.shape[0] / replay_ms * 1e3:.1f} samples/s")
+        profile_steps(captured.step, x, flags, 3, "batchnorm", f"{tag}, captured: ")
+        gen = torch.Generator(device=x.device).manual_seed(7)
+        draws = u_draws(second["density"], x, gen, second["config"]["num_u_channels"])
+        card_vs_cpu(second, x, flags, f"batchnorm {tag}", STEP_LOSS_TOL, STEP_GRAD_TOL, **draws)
+
+        before = bn_buffers(eager.density)
+        results = eager.test()
+        same = all(torch.equal(a, b) for a, b in zip(before, bn_buffers(eager.density)))
+        print(f"[batchnorm] {tag}: Trainer.test() {({k: v for k, v in results.items() if k != 'feature_extractor'})}; "
+              f"the training statistics bit-equal after it: {same}")
+        assert same, f"{tag}: the evaluation left other statistics"
+
+        full = nosave_setup(model_args, "miniboone", None, BATCHNORM_EPOCHS)
+        density = full["density"]
+        refresh_ms = host_ms(lambda: density.refresh_state(gen), 3)
+        print(f"[batchnorm] {smi}: {tag}: one refresh over {density.passthrough_x.shape[0]:,} stored rows "
+              f"{refresh_ms:.4f} ms (host clock, synchronized)")
+        if tag in EVAL_OVERFLOWS:
+            # The published layers with their batch-norm, at init: the
+            # training elbo of 1000 stored rows (the batch's statistics),
+            # then, after a refresh, the evaluation elbo of 3000 validation
+            # rows on the card and on the CPU from the same weights and
+            # statistics.
+            from cmf_tpu_torch.models import get_density
+
+            rows = density.passthrough_x[:SOS_TABULAR_BATCH]
+            valid_x = torch.cat(list(full["trainer"].valid_loader))[:BATCHNORM_ROWS]
+            with torch.no_grad():
+                with batch_statistics(density):
+                    train_elbo = density.elbo(rows)["elbo"]
+                density.refresh_state(gen)
+                eval_card = density.elbo(valid_x)["elbo"].cpu()
+                cpu = get_density(full["schema"], x_shape=(valid_x.shape[1],), device="cpu")
+                cpu.load_state_dict({k: v.cpu() for k, v in density.state_dict().items()})
+                eval_cpu = cpu.elbo(valid_x.cpu())["elbo"]
+            same = torch.equal(torch.isfinite(eval_card), torch.isfinite(eval_cpu))
+            print(f"[batchnorm] sos --baseline at init with its batch-norm: {int(torch.isfinite(train_elbo).sum())} "
+                  f"of {rows.shape[0]} stored rows finite in training mode; after a refresh "
+                  f"{int(torch.isfinite(eval_card).sum())} of {valid_x.shape[0]} validation rows finite on the "
+                  f"card, {int(torch.isfinite(eval_cpu).sum())} on the CPU, the same rows: {same}")
+            assert bool(torch.isfinite(train_elbo).all()), "sos: a training elbo row overflowed with batch-norm"
+            assert same, "sos: the card's overflowing rows are not the CPU's"
+    print(f"[batchnorm] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -3238,6 +3537,8 @@ def main():
         timed("square-cif", phase_square_cif, smi, root)
         timed("image-square", phase_image_square, smi, root)
         timed("square-2d", phase_square_2d, smi, root)
+        timed("hutch-gram", phase_hutch_gram, smi, root, step_ms)
+        timed("batchnorm", phase_batchnorm, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

@@ -1,5 +1,6 @@
 from .affine import AffineBijection, ConditionalAffineBijection
 from .base import Bijection, CompositeBijection, IdentityBijection, InverseBijection
+from .batchnorm import BatchNormBijection
 from .bnaf import BlockNeuralAutoregressiveBijection
 from .coupling import (
     AlternatingChannelwiseCouplingBijection,
@@ -31,6 +32,7 @@ from .spline import (
 __all__ = [
     "AffineBijection",
     "AutoregressiveRationalQuadraticSplineBijection",
+    "BatchNormBijection",
     "BlockNeuralAutoregressiveBijection",
     "CompositeBijection",
     "ConditionalAffineBijection",

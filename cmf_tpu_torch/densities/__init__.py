@@ -12,7 +12,7 @@ from .gaussian import (
 )
 from .nonsquare import ManifoldFlowHeadDensity, NonSquareHeadDensity, NonSquareTailDensity
 from .split import SplitDensity
-from .wrapper import DequantizationDensity
+from .wrapper import DequantizationDensity, PassthroughBeforeEvalDensity
 
 __all__ = [
     "Density",
@@ -29,5 +29,6 @@ __all__ = [
     "ManifoldFlowHeadDensity",
     "NonSquareHeadDensity",
     "NonSquareTailDensity",
+    "PassthroughBeforeEvalDensity",
     "SplitDensity",
 ]

@@ -10,11 +10,15 @@ torch).
   (ops/gram_logdet.py) gives G and log|G|; outside it, the plain Gram and the
   jittered Cholesky (ops/chol.py), as cmf_tpu routes them.
 * Stochastic path (``"hutch_with_cg"`` with ``train=True``,
-  nonsquare.py:302-392): Hutchinson probes ε (B, d, S), a detached CG solve
-  of (JᵀJ)⁻¹ε, and the surrogate mean_S Σ_d sg[(JᵀJ)⁻¹ε] ⊙ (JᵀJε) whose
+  nonsquare.py:302-392): Hutchinson probes ε (B, d, S), a detached solve of
+  (JᵀJ)⁻¹ε, and the surrogate mean_S Σ_d sg[(JᵀJ)⁻¹ε] ⊙ (JᵀJε) whose
   gradient is that of log|JᵀJ|. JᵀJv is a JVP of the flat decode and then a
   VJP (``torch.func.jvp`` / ``torch.func.vjp``); the gradient flows through
-  JᵀJε into the decoder's parameters, a second-order gradient.
+  JᵀJε into the decoder's parameters, a second-order gradient. The solve is
+  the exact-Gram one (``hutchinson_solver="gram"``, which ``"auto"`` picks
+  on flat chains with d ≤ 64): the detached Jacobian columns, their Gram
+  and ``spd_solve``, whose factor gives the exact log-det as the value
+  (the surrogate keeps the gradient); or the reference's iterative CG.
 * CMF metric regularisers (non_square.py:87-99): L1 of diag(JᵀJ) (g_kk,
   Hutchinson-estimated on the stochastic path) and of its off-diagonal
   entries (g_ij, exact path only).
@@ -22,17 +26,16 @@ torch).
   nonsquare.py:429-465): a training step takes no log-det at all, only the
   latent prior's elbo on the detached latent and the reconstruction term;
   evaluation and ``ood`` take the exact log-det as above.
-
-Waiting for a later slice, and raising when asked for: the exact-Gram
-Hutchinson solver (``hutchinson_solver="gram"``, which ``"auto"`` picks on
-flat chains) and ``spd_solve``.
 """
+
+import warnings
 
 import torch
 
 from .base import Density
+from .elbo import GRAPH_SAFE_GENERATORS
 from ..ops.cg import batched_cg
-from ..ops.chol import cholesky_logdet
+from ..ops.chol import cholesky_logdet, spd_solve
 from ..ops.gram import gram_from_columns
 from ..ops.gram_logdet import fused_gram_logdet, fused_gram_logdet_available
 
@@ -125,10 +128,16 @@ class NonSquareHeadDensity(Density):
 
     @property
     def step_capturable(self):
-        """The exact log-det reads nothing on the host; the Hutchinson
-        estimate draws its probes and its CG loop reads a flag each
-        iteration."""
-        return self.log_jacobian_method == "cholesky" and super().step_capturable
+        """The exact log-det reads nothing on the host. The Hutchinson
+        estimate draws its probes from the caller's generator: with the
+        exact-Gram solver it is capturable where that generator can be
+        registered with the graph (as a CIF's u); the CG loop reads a flag
+        each iteration."""
+        if self.log_jacobian_method == "hutch_with_cg":
+            gram = self._resolved_hutch_solver(self.latent_dimension) == "gram"
+            if not (gram and GRAPH_SAFE_GENERATORS):
+                return False
+        return super().step_capturable
 
     def _decode_flat(self, u):
         return self.prior.decode(u).reshape(u.shape[0], -1)
@@ -256,23 +265,32 @@ class NonSquareHeadDensity(Density):
     def _resolved_hutch_solver(self, d):
         """'auto' picks the exact-Gram solver where a dense decode program
         covers a flat chain with small d, else the reference's iterative CG
-        (nonsquare.py:270-300). The conv chains of the image models take CG."""
+        (nonsquare.py:270-300), warning once that the CG settings are inert
+        when it picks the Gram. The conv chains of the image models take CG."""
         if self.hutchinson_solver != "auto":
             return self.hutchinson_solver
-        if d <= _GRAM_SOLVER_MAX_D and self._dense_decode_program() is not None:
-            return "gram"
-        return "cg"
+        resolved = "cg"
+        if d is not None and d <= _GRAM_SOLVER_MAX_D and self._dense_decode_program() is not None:
+            resolved = "gram"
+        if (
+            resolved == "gram"
+            and not getattr(self, "_warned_inert_cg", False)
+            and (self.max_cg_iterations is not None or self.cg_tolerance != 1.0)
+        ):
+            self._warned_inert_cg = True
+            warnings.warn(
+                "hutchinson_solver='auto' resolved to the exact-Gram solver; "
+                "max_cg_iterations/cg_tolerance are inert. Set "
+                "hutchinson_solver='cg' for the reference's iterative CG.",
+                stacklevel=2,
+            )
+        return resolved
 
     def _approx_log_det(self, z, generator=None, eps=None):
         """(non_square.py:203-258) Hutchinson surrogate log-det with a
-        detached CG solve. Returns (log_det, recon_flat, diag_est)."""
+        detached solve, by the exact Gram or by CG. Returns (log_det,
+        recon_flat, diag_est)."""
         batch, d = z.shape
-        if self._resolved_hutch_solver(d) == "gram":
-            raise NotImplementedError(
-                "hutchinson_solver='gram' (the exact-Gram Hutchinson solver, the 'auto' "
-                "choice on flat chains) waits for a later slice of the port; set "
-                "hutchinson_solver='cg'"
-            )
         S = self.num_hutchinson_samples
         if eps is None:
             shape = (batch, d, S)
@@ -295,23 +313,46 @@ class NonSquareHeadDensity(Density):
             return torch.stack(cols, dim=-1)
 
         jtj_eps = jtj(eps)  # the gradient flows through this factor
-
-        # Reference CG semantics (non_square.py:241-247): a detached solve
-        # whose first matvec is JᵀJε, so at cg_tolerance=1 the loop usually
-        # runs none; further matvecs reuse the linearisation without a graph.
-        with torch.no_grad():
-            jtj_inv_eps = batched_cg(
-                jtj,
-                eps.detach(),
-                max_iter=self.max_cg_iterations or d,
-                tolerance=self.cg_tolerance,
-                first_matvec=jtj_eps.detach(),
-            )
+        gram = None
+        if self._resolved_hutch_solver(d) == "gram":
+            # The d columns of the decoder's Jacobian, detached from the
+            # weights and from z, in one batched fan-out; the Gram; and its
+            # jittered Cholesky, which solves for (JᵀJ)⁻¹ε and gives the
+            # exact log-det (nonsquare.py:343-357).
+            program = self._dense_decode_program()
+            with torch.no_grad():
+                if program is not None:
+                    _, jac_cols = program(z.detach())
+                else:
+                    _, jac_cols = self._generic_jacobian(z.detach())
+                gram = gram_from_columns(jac_cols)
+                jtj_inv_eps, chol_l = spd_solve(gram, eps.detach())
+                exact_log_det = 2.0 * torch.log(torch.diagonal(chol_l, dim1=-2, dim2=-1)).sum(dim=-1)
+        else:
+            # Reference CG semantics (non_square.py:241-247): a detached
+            # solve whose first matvec is JᵀJε, so at cg_tolerance=1 the
+            # loop usually runs none; further matvecs reuse the
+            # linearisation without a graph.
+            with torch.no_grad():
+                jtj_inv_eps = batched_cg(
+                    jtj,
+                    eps.detach(),
+                    max_iter=self.max_cg_iterations or d,
+                    tolerance=self.cg_tolerance,
+                    first_matvec=jtj_eps.detach(),
+                )
 
         surrogate = (jtj_inv_eps * jtj_eps).sum(dim=1).mean(dim=-1)
         # Unbiased Hutchinson estimate of diag(JᵀJ) for the g_kk regulariser.
         diag_est = (eps * jtj_eps).mean(dim=-1)
-        return surrogate, recon_flat, diag_est
+        if gram is None:
+            return surrogate, recon_flat, diag_est
+        # Value correction (nonsquare.py:384-391): the exact log-det and the
+        # exact diagonal as the values, the surrogate's and the estimate's
+        # gradients kept.
+        log_det = exact_log_det + surrogate - surrogate.detach()
+        diag_est = torch.diagonal(gram, dim1=-2, dim2=-1) + diag_est - diag_est.detach()
+        return log_det, recon_flat, diag_est
 
 
 class ManifoldFlowHeadDensity(NonSquareHeadDensity):

@@ -12,7 +12,8 @@ split-channel masks, ``made``, ``linear`` (LU), ``invconv`` (LU or free),
 u-channels (``cond-affine``, ``cond-planar``: the CIF ``ELBODensity`` with
 its p(u|z) and q(u|x), on flat or image shapes), MLP, ResNet (with or
 without batch-norm), GlowCNN, constant and identity coupler nets, and the
-standard Gaussian. Any other layer type (``batch-norm``), the ``acl`` layer
+standard Gaussian, ``batch-norm`` and the ``passthrough-before-eval``
+wrapper (first in a schema only). Any other layer type, the ``acl`` layer
 with u-channels, or another mask or net raises ``NotImplementedError``
 naming it.
 
@@ -27,6 +28,7 @@ from ..bijections import (
     AffineBijection,
     AlternatingChannelwiseCouplingBijection,
     AutoregressiveRationalQuadraticSplineBijection,
+    BatchNormBijection,
     BlockNeuralAutoregressiveBijection,
     BruteForceInvertible1x1ConvBijection,
     Checkerboard2dCouplingBijection,
@@ -58,6 +60,7 @@ from ..densities import (
     ManifoldFlowHeadDensity,
     NonSquareHeadDensity,
     NonSquareTailDensity,
+    PassthroughBeforeEvalDensity,
     SplitDensity,
 )
 from ..nets import MLP, ConstantNetwork, GlowCNN, IdentityNetwork, ResNet, get_activation
@@ -69,8 +72,16 @@ def _later(what):
 
 def get_density(schema, x_shape, device, generator=None):
     """Build the density tree for input shape ``x_shape`` (no batch dim) on
-    ``device``."""
-    return get_density_recursive(schema, tuple(x_shape), generator).to(device)
+    ``device``. A ``passthrough-before-eval`` first layer wraps the rest;
+    the experiment attaches its rows of training data (factory.py:54-65)."""
+    if schema and schema[0]["type"] == "passthrough-before-eval":
+        density = PassthroughBeforeEvalDensity(
+            density=get_density_recursive(schema[1:], tuple(x_shape), generator),
+            num_points=schema[0]["num_passthrough_data_points"],
+        )
+    else:
+        density = get_density_recursive(schema, tuple(x_shape), generator)
+    return density.to(device)
 
 
 def get_standard_gaussian_density(x_shape, generator):
@@ -96,6 +107,9 @@ def get_density_recursive(schema, x_shape, generator):
             axis=1,
             non_square=layer_config["non_square"],
         )
+
+    if ty == "passthrough-before-eval":
+        raise AssertionError("`passthrough-before-eval` must occur first in a schema")
 
     if ty == "non-square-head":
         head_cls = ManifoldFlowHeadDensity if layer_config["m_flow"] else NonSquareHeadDensity
@@ -174,6 +188,14 @@ def get_bijection(layer_config, x_shape, generator):
         return ScalarMultiplicationBijection(x_shape=x_shape, value=layer_config["value"])
     if ty == "scalar-add":
         return ScalarAdditionBijection(x_shape=x_shape, value=layer_config["value"])
+    if ty == "batch-norm":
+        return BatchNormBijection(
+            x_shape=x_shape,
+            per_channel=layer_config["per_channel"],
+            apply_affine=layer_config["apply_affine"],
+            momentum=layer_config["momentum"],
+            detach=layer_config["detach"],
+        )
     if ty == "affine":
         return AffineBijection(x_shape=x_shape, per_channel=layer_config["per_channel"])
     if ty == "acl":

@@ -221,9 +221,11 @@ class BatchNorm2d(nn.Module):
 
 @contextlib.contextmanager
 def batch_statistics(module):
-    """Every ``BatchNorm2d`` of ``module`` normalises by the batch for the
-    length of the block: the JAX package's ``train=True``."""
-    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    """Every batch-norm layer of ``module`` (``BatchNorm2d`` and
+    ``bijections.BatchNormBijection``: each module with a ``batch_stats``
+    switch) normalises by the batch for the length of the block: the JAX
+    package's ``train=True``."""
+    layers = [m for m in module.modules() if hasattr(m, "batch_stats")]
     before = [m.batch_stats for m in layers]
     for m in layers:
         m.batch_stats = True

@@ -9,6 +9,9 @@ level found (chol.py:59-117). The search reads nothing on the host, so a
 CUDA graph can hold it: where the reference's ``lax.while_loop`` stops at the
 first finite try, every try is factorised in one batch and the first whose
 whole batch is finite is selected on the device.
+
+``spd_solve`` (chol.py:148-171) solves G x = rhs through that factor: the
+exact-Gram Hutchinson solver's (JᵀJ)⁻¹ε, with L for its log-det.
 """
 
 import torch
@@ -77,6 +80,47 @@ def jittered_cholesky(gram):
         level = torch.argmax(finite.to(torch.int32)).reshape(1)
         total = torch.stack(totals).index_select(0, level).reshape(())
     return _cholesky(gram + total * eye), total
+
+
+def _small_solve_lower(L, b):
+    """Forward substitution L y = b for small d, unrolled over the rows
+    (chol.py:120-133); b is (..., d, S)."""
+    rows = []
+    for i in range(L.shape[-1]):
+        s = b[..., i, :]
+        if rows:
+            # s − Σ_{k<i} L[i, k]·y[k]
+            s = s - (L[..., i : i + 1, :i] @ torch.stack(rows, dim=-2)).squeeze(-2)
+        rows.append(s / L[..., i, i, None])
+    return torch.stack(rows, dim=-2)
+
+
+def _small_solve_lower_t(L, b):
+    """Back substitution Lᵀ x = b for small d (chol.py:136-145)."""
+    d = L.shape[-1]
+    rows = []  # x[d-1], x[d-2], ...
+    for i in reversed(range(d)):
+        s = b[..., i, :]
+        if rows:
+            # s − Σ_{k>i} L[k, i]·x[k]
+            below = torch.stack(rows[::-1], dim=-2)  # x[i+1:]
+            s = s - (L[..., i + 1 :, i].unsqueeze(-2) @ below).squeeze(-2)
+        rows.append(s / L[..., i, i, None])
+    return torch.stack(rows[::-1], dim=-2)
+
+
+def spd_solve(gram, rhs):
+    """Solve G x = rhs for a batch of SPD matrices through the jittered
+    Cholesky (chol.py:148-171). ``gram`` is (..., d, d), ``rhs`` (..., d, S).
+    Returns (x, L), L for the log-det ``2·Σ log diag L``. A Gram whose every
+    jitter level fails gives NaN, never an exception. Up to d = 64 the two
+    substitutions are unrolled, as the factorisation is, and read nothing on
+    the host; above it, ``torch.linalg.solve_triangular``."""
+    L, _ = jittered_cholesky(gram)
+    if gram.shape[-1] <= _UNROLL_MAX:
+        return _small_solve_lower_t(L, _small_solve_lower(L, rhs)), L
+    y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True), L
 
 
 def cholesky_logdet(gram):

@@ -34,7 +34,13 @@ from ..config import get_schema
 from ..data import get_loaders
 from ..data.image import DATASET_SHAPES as IMAGE_SHAPES
 from ..data.tabular import DATASET_SHAPES as TABULAR_SHAPES
-from ..densities import BijectionDensity, DequantizationDensity, NonSquareTailDensity, SplitDensity
+from ..densities import (
+    BijectionDensity,
+    DequantizationDensity,
+    NonSquareTailDensity,
+    PassthroughBeforeEvalDensity,
+    SplitDensity,
+)
 from ..device import pin_fp32, resolve_device
 from ..eval.fid import get_fid_function
 from ..eval.inception import get_feature_fn
@@ -52,9 +58,6 @@ def _later(what):
     return NotImplementedError(f"{what} waits for a later slice of the port")
 
 
-# Layer types of the JAX package's schemas that the port does not build yet:
-# batch-norm and its passthrough wrapper (ROADMAP module 6).
-WAITING_LAYERS = ("batch-norm", "passthrough-before-eval")
 COUPLER_NETS = ("mlp", "resnet", "glow-cnn", "constant", "identity")
 _COUPLER_KEYS = ("coupler", "st_coupler", "p_coupler", "q_coupler")
 
@@ -69,22 +72,17 @@ def _coupler_nets(layer):
 
 
 def check_schema(schema):
-    """Raise naming every layer type of ``schema`` that waits for a later
-    slice (in ``WAITING_LAYERS``' order: ``batch-norm`` and
-    ``passthrough-before-eval``), else the first layer option or coupler net
-    that does (an ``acl`` layer with u-channels; a net type outside
-    ``COUPLER_NETS``). A non-square model's couplers stay batch-norm-free
-    (a ResNet with ``batchnorm`` or a GlowCNN is refused there):
-    its decode reads the statistics of the encoder's forward
+    """Raise naming the first layer option or coupler net of ``schema`` that
+    waits for a later slice: an ``acl`` layer with u-channels, a net type
+    outside ``COUPLER_NETS``, or batch-norm in a non-square model (a
+    ``batch-norm`` layer, a ResNet coupler with ``batchnorm`` or a
+    GlowCNN): its decode reads the statistics of the encoder's forward
     (``cmf_tpu/densities/nonsquare.py:104-114``), which waits with the rest
-    of module 6."""
+    of ROADMAP module 6."""
     types = {layer["type"] for layer in schema}
-    waiting = [f"`{ty}'" for ty in WAITING_LAYERS if ty in types]
-    if len(waiting) == 1:
-        raise _later(f"the {waiting[0]} layer")
-    if waiting:
-        raise NotImplementedError(f"the {', '.join(waiting)} layers wait for a later slice of the port")
     non_square = "non-square-head" in types
+    if non_square and "batch-norm" in types:
+        raise _later("the non-square model with `batch-norm' layers (ROADMAP module 6)")
     for layer in schema:
         ty = layer["type"]
         if ty == "acl" and layer.get("num_u_channels", 0) > 0:
@@ -233,6 +231,12 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     schema = get_schema(config)
     generator = torch.Generator().manual_seed(seed)
     density = get_density(schema, x_shape=train_loader.x_shape, device=device, generator=generator)
+    if isinstance(density, PassthroughBeforeEvalDensity):
+        # The stored rows, drawn from the training set as the JAX package
+        # draws them (experiment.py:163-170), anew on every setup.
+        n = min(density.num_points, train_loader.num_examples)
+        idx = np.random.default_rng(seed).permutation(train_loader.num_examples)[:n]
+        density.attach_data(torch.as_tensor(train_loader.x[idx], device=device))
     writer = _make_writer(config, resume_dir, write_to_disk)
     visualizer = viz.get_visualizer(config, writer, train_data=train_loader.x)
 
@@ -387,7 +391,8 @@ def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, devi
     if draws:
         visualizer = viz.get_visualizer(config, DummyWriter(), train_data=setup["train_loader"].x,
                                         write_folder=resume_dir)
-        visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
+        with setup["trainer"].evaluating():
+            visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
     with open(metrics_path, "w") as f:
         json.dump(results, f, indent=4)
     setup["results"] = results
@@ -490,7 +495,8 @@ def _analyse(config, resume_dir, device):
     setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
     visualizer = viz.get_visualizer(config, DummyWriter(), train_data=setup["train_loader"].x,
                                     write_folder=resume_dir)
-    return visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
+    with setup["trainer"].evaluating():
+        return visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
 
 
 def metric_test_plots(config, resume_dir, device=None):
@@ -556,6 +562,7 @@ def visualize_two_dim_manifold(config, resume_dir, device=None):
     viz.require_matplotlib("--two-dim-manifold", "it needs a machine where matplotlib imports")
     config = {**config, "test_metric": False, "use_fid": False}
     setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
-    images = two_dim_manifold_grid(setup["density"])
+    with setup["trainer"].evaluating():
+        images = two_dim_manifold_grid(setup["density"])
     draw_two_dim_manifold(images, os.path.join(resume_dir, "two_dim_manifold.pdf"))
     return images

@@ -21,16 +21,17 @@ flow (``BijectionDensity``) or a CIF (``ELBODensity``) under
 
 Two routes run that one step function. On a CUDA device, where the density
 says its step can run in a graph (``Density.step_capturable``: the exact,
-Cholesky, log-det or the M-flow step's none, a square flow, no host read;
-no random draw, or only the CIF's u, drawn from the trainer's generator,
-which is then registered with every graph the trainer captures, so each
-replay draws afresh), the step is captured in a CUDA graph per flag key (``_get_step``,
+Cholesky, log-det, the exact-Gram Hutchinson estimate or the M-flow step's
+none, a square flow, no host read; no random draw, or only the CIF's u or
+the Hutchinson probes, drawn from the trainer's generator, which is then
+registered with every graph the trainer captures, so each replay draws
+afresh), the step is captured in a CUDA graph per flag key (``_get_step``,
 trainer.py:178-200; the key holds the optimizer index), all graphs in one
 memory pool: the counterpart of the jitted, scanned epoch. A key's first
 step runs eagerly on the capture stream (it builds the kernels and warms
 cuBLAS); its second is captured, then replayed; each later step copies the
 batch into the graph's input and replays. A capture that fails
-raises. The Hutchinson path, whose CG loop reads a flag on the host each
+raises. The Hutchinson CG path, whose loop reads a flag on the host each
 iteration, a dequantized (image) model, which draws its noise, and the CPU
 run the step eagerly.
 
@@ -46,6 +47,10 @@ then a ``latest`` checkpoint.
 Non-finite losses leave ``nan_during_training`` / ``_validation`` /
 ``_test`` checkpoints. Both passes run between epochs, outside the graphs;
 each FID reads the host once, and so does a checkpoint's copy to the host.
+Under the passthrough wrapper each evaluation (the validation, the test's
+metrics and its FID, the visualiser, the OOD pass) first refreshes the
+batch-norm statistics over the stored rows, then puts the training state
+back (``evaluating``).
 The train telemetry (loss, grad norm, lr every 10 steps) is written from
 the epoch's one read; the lr is the epoch's optimizer's schedule on the
 host at the global iteration, as the JAX trainer writes it
@@ -68,7 +73,7 @@ from contextlib import contextmanager
 
 import torch
 
-from ..densities import ELBODensity
+from ..densities import ELBODensity, NonSquareHeadDensity, PassthroughBeforeEvalDensity
 from ..densities.nonsquare import logdet_fallbacks
 from ..nets import batch_statistics
 from .checkpoint import make_checkpoint, restore_checkpoint
@@ -212,8 +217,13 @@ class Trainer:
         self._likelihood_wt = torch.zeros((), device=device)
         self._metric_wt = torch.zeros((), device=device)
         self.captured = device.type == "cuda" and density.step_capturable
-        # A captured step that draws (the CIF's u) draws from this generator.
-        self._graph_generator = any(isinstance(m, ELBODensity) for m in density.modules())
+        # A captured step that draws (the CIF's u, the Hutchinson probes)
+        # draws from this generator.
+        self._graph_generator = any(
+            isinstance(m, ELBODensity)
+            or (isinstance(m, NonSquareHeadDensity) and m.log_jacobian_method == "hutch_with_cg")
+            for m in density.modules()
+        )
         # flag key and batch shape → None after the key's eager first step,
         # then its _CapturedStep.
         self.graphs = {}
@@ -292,10 +302,16 @@ class Trainer:
 
     def _frozen(self, optimizer):
         """What a non-finite step of ``optimizer`` leaves as it was: the
-        parameters, the floating-point buffers, then that optimizer's state
-        (made at init, so the same tensors before and after a step)."""
-        buffers = [b for b in self.density.buffers() if b.is_floating_point()]
-        return self.params + buffers + optimizer.tensors()
+        parameters, the floating-point buffers (not the passthrough
+        wrapper's rows, which are no buffer and which a step never writes),
+        then that optimizer's state (made at init, so the same tensors
+        before and after a step)."""
+        return self.params + self._state() + optimizer.tensors()
+
+    def _state(self):
+        """The density's floating-point buffers: the batch-norm statistics
+        among them."""
+        return [b for b in self.density.buffers() if b.is_floating_point()]
 
     def _step_fn(self, x, flags):
         """The step itself: (loss, grad_norm), 0-dim, on the device."""
@@ -391,6 +407,27 @@ class Trainer:
             raise FloatingPointError(f"NaN/Inf loss during epoch {epoch}")
 
     # ------------------------------------------------------------ evaluation
+    @contextmanager
+    def evaluating(self):
+        """The state an evaluation sees (``_eval_variables``,
+        trainer.py:308-316): under the passthrough wrapper, its refresh over
+        the stored rows, with a u drawn from the trainer's generator where
+        the model is a CIF; after the block the floating-point buffers (the
+        batch-norm statistics) hold the training state again, as the JAX
+        package refreshes a copy of its state."""
+        if not isinstance(self.density, PassthroughBeforeEvalDensity):
+            yield
+            return
+        state = self._state()
+        saved = [b.clone() for b in state]
+        with self._timed("refresh"):
+            self.density.refresh_state(self.generator)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(state, saved)
+
     def _fid(self):
         with self._timed("fid"):
             return float(self.fid_function(self.density, self.generator))
@@ -415,13 +452,14 @@ class Trainer:
         if epoch % self.valid_frequency != 0:
             return
 
-        if self.fid_function is not None:
-            # FID stands in for the validation loss (trainer.py:367-371).
-            valid_loss = self._fid()
-        else:
-            valid_loss = self._run_eval(
-                lambda d, x, g: {"loss": self.valid_loss_fn(d, x, g)}, self.valid_loader
-            )["loss"]
+        with self.evaluating():
+            if self.fid_function is not None:
+                # FID stands in for the validation loss (trainer.py:367-371).
+                valid_loss = self._fid()
+            else:
+                valid_loss = self._run_eval(
+                    lambda d, x, g: {"loss": self.valid_loss_fn(d, x, g)}, self.valid_loader
+                )["loss"]
 
         self.writer.write_scalar("valid/loss", valid_loss, global_step=epoch)
 
@@ -446,9 +484,11 @@ class Trainer:
         extractor and any sqrtm jitter it needed (trainer.py:398-422)."""
         results = {}
         if self.test_metrics_fn is not None:
-            results.update(self._run_eval(self.test_metrics_fn, self.test_loader))
+            with self.evaluating():
+                results.update(self._run_eval(self.test_metrics_fn, self.test_loader))
         if self.fid_function is not None:
-            results["fid"] = self._fid()
+            with self.evaluating():
+                results["fid"] = self._fid()
             results["feature_extractor"] = getattr(self.fid_function, "feature_extractor", "unknown")
             jitter = getattr(self.fid_function, "last_jitter", None)
             if jitter:
@@ -466,7 +506,8 @@ class Trainer:
             if not math.isfinite(v):
                 self._save_checkpoint("nan_during_test")
         if self.visualizer is not None:
-            self.visualizer.visualize(self.density, epoch)
+            with self.evaluating():
+                self.visualizer.visualize(self.density, epoch)
 
     def test_ood(self, loader, write_tag):
         """The OOD pass (trainer.py:424-441): each example's likelihood term
@@ -475,7 +516,7 @@ class Trainer:
         which the forward-only coupler kernel does not carry); one host read,
         then an (N, 2) ``.npy`` dump through the writer."""
         buffers = {}
-        with torch.no_grad():
+        with self.evaluating(), torch.no_grad():
             for x in loader:
                 for k, v in self.density.ood(x).items():
                     buffers.setdefault(k, []).append(v)

@@ -145,19 +145,20 @@ _PORTED = [
     (lambda: _published("planar", "2uniforms", baseline=True), "planar-2uniforms-baseline"),
     (lambda: _published("planar", "2uniforms"), "planar-2uniforms"),
     (lambda: _published("nsf-ar", baseline=True, autoregressive=False), "nsf-c-miniboone-baseline"),
+    (lambda: _published("realnvp"), "realnvp-miniboone"),
+    (lambda: _published("realnvp", baseline=True), "realnvp-miniboone-baseline"),
+    (lambda: _published("maf", baseline=True), "maf-miniboone-baseline"),
+    (lambda: _published("sos", baseline=True), "sos-miniboone-baseline"),
+    (lambda: _flagship(log_jacobian_method="hutch_with_cg"), "log_jacobian_method-hutch_with_cg"),
 ]
 # (config, id, what the refusal must name): one case per layer type that
 # waits, each from a published config that has it.
 _UNPORTED = [
     (lambda: _flagship(checkpoint_backend="orbax"), "checkpoint_backend-orbax", "JAX package's backend"),
     (lambda: _flagship(compute_dtype="bfloat16"), "compute_dtype-bfloat16", "compute_dtype"),
-    (lambda: _published("realnvp", baseline=True), "realnvp-miniboone-baseline", "`batch-norm'"),
-    (lambda: _published("maf", baseline=True), "maf-miniboone-baseline", "`passthrough-before-eval'"),
-    # The tabular sos has batch-norm and its passthrough wrapper: refused
-    # for them alone.
-    (lambda: _published("sos", baseline=True), "sos-miniboone-baseline", "`batch-norm'"),
     (lambda: _published("non-square", "mnist", resnet_batchnorm=True), "non-square-mnist-resnet_batchnorm-True",
      "non-square model with batch-norm `resnet' couplers"),
+    (lambda: _flagship(batch_norm=True), "batch_norm-True", "non-square model with `batch-norm' layers"),
 ]
 
 
@@ -165,8 +166,8 @@ _UNPORTED = [
 def test_unported_config_raises(make, match):
     """The flagship's published defaults pass (a run dir, early stopping,
     FID), and so do mnist's. Still refused, naming what waits: the orbax
-    checkpoint backend, bfloat16 compute, and each layer type of the JAX
-    package's factory that the port does not build yet."""
+    checkpoint backend, bfloat16 compute, and batch-norm in a non-square
+    model (its couplers' or its own layers')."""
     config = _flagship()
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)
@@ -190,9 +191,11 @@ def test_ported_config_passes(make):
     """mnist's metric and centering analyses into a run dir (matplotlib
     imports here), the M-flow baseline, the optimizer options, the
     tabular square NSF and CIFs, the image square flow and CIF with
-    their invconvs, GlowCNN and batch-norm ResNet couplers, and the 2-D
-    zoo's BNAF and planar flows and the coupled spline, with their
-    published settings."""
+    their invconvs, GlowCNN and batch-norm ResNet couplers, the 2-D
+    zoo's BNAF and planar flows and the coupled spline, the tabular
+    batch-norm models under the passthrough wrapper (realnvp with and
+    without ``--baseline``, ``maf --baseline``, ``sos --baseline``) and
+    the flagship's Hutchinson estimate, with their published settings."""
     check_supported(make())
 
 

@@ -243,6 +243,37 @@ Phases, each of which fails the run on its own failure:
                   statistics bit-equal, one refresh over the whole synthetic
                   train split timed; sos's finite rows at init with its
                   batch-norm.
+23. tabular-table -- the paper's tabular table: power's published non-square
+                  model (D = 6, d = 2, batch 5000) from a raw-format
+                  ``power/data.npy`` of 62,000 x 8 rows (10 steps an
+                  epoch), an RNF arm (lambda 0) and a CMF arm (lambda 1,
+                  g_ij) of 2 seeds each for 3 epochs into run dirs, each
+                  arm's seeds over two CLI calls with ``--grid-shard 0/2``
+                  and ``1/2``: one graph a run, Gram/log-det launches equal
+                  to the training steps (added to the kernels line); each
+                  run ``--test --test-fid --resume``d (50,000 samples);
+                  ``collect_fid`` and ``collect_test_loss`` of
+                  ``cmf_tpu_torch.analysis`` over the runs, one row an arm
+                  with n = 2, and ``python -m cmf_tpu_torch.analysis
+                  tabular``; ms a captured step. Where the card's machine
+                  has no matplotlib, the 4/6-D visualiser of the run dirs
+                  draws into a stand-in (its numbers are computed, its
+                  figures are empty files).
+24. nonsquare-bn -- the flagship with ``--config batch_norm=True`` at
+                  published widths into a run dir, 2 epochs of 3 steps with
+                  the likelihood from step 1 (the decode through the dense
+                  program's 10 ``bn`` steps): one graph, Gram/log-det
+                  launches equal to the steps (backward) and the steps plus
+                  the refreshes (forward), added to the kernels line;
+                  resumed one epoch bit-equal and ``--test --resume``d; 3
+                  captured against 3 eager steps, the statistics too; ms a
+                  captured step; a card step against the CPU; then mnist's
+                  non-square model with ``resnet_batchnorm=True`` (each
+                  coupler 2 blocks of the published 8, width 64) for 3
+                  Hutchinson steps (no kernel launch), ms an eager step,
+                  and a card step at batch 8 against the CPU on the same
+                  noise and probes (fp64 and fp32, the running statistics
+                  too).
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -1414,11 +1445,11 @@ def phase_warmup():
     assert fwd == bwd == lik_steps, "Gram/log-det launches != likelihood steps in the warm-up run"
 
 
-def _scalar_steps(run_dir, tag):
+def _scalar_steps(run_dir, tag, dataset="miniboone"):
     """{step: value} of one scalar of a run dir's ``scalars.jsonl``."""
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         rows = [json.loads(line) for line in f]
-    return {r["step"]: r["value"] for r in rows if r["tag"] == f"miniboone/{tag}"}
+    return {r["step"]: r["value"] for r in rows if r["tag"] == f"{dataset}/{tag}"}
 
 
 def _restore_streams(streams):
@@ -3497,6 +3528,326 @@ def phase_batchnorm(smi, root):
     print(f"[batchnorm] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+# The paper's tabular table on power (config/defaults/tabular.py: D = 6,
+# d = 2, 10 couplings of [128]x4, a prior of 5 x [32]x2, batch 5000), from a
+# raw-format ``power/data.npy`` of 62,000 x 8 rows: 6,200 test, 5,580 valid
+# and 50,220 train rows, 10 steps of 5000 an epoch. Two arms (RNF and CMF)
+# of 2 seeds each, 3 epochs a run with the likelihood from step 1.
+TABLE_RAW_ROWS, TABLE_EPOCHS, TABLE_SEEDS = 62_000, 3, 2
+TABLE_ARMS = [
+    ("RNF", ["--config", "metric_regularization_param=0", "--config", "g_ij_loss=False"]),
+    ("CMF", ["--config", "metric_regularization_param=1", "--config", "g_ij_loss=True"]),
+]
+TABLE_ARGV = ["--model", "non-square", "--dataset", "power", "--config", "likelihood_warmup=False",
+              "--config", f"max_epochs={TABLE_EPOCHS}", "--num-seeds", str(TABLE_SEEDS)]
+
+
+class _NoFigures:
+    """Stands in for matplotlib where the card's machine has none: every
+    call and attribute gives another stand-in, and ``savefig`` leaves an
+    empty file. The 4/6-D visualiser of a power run dir still computes and
+    writes its numbers (MACS, the invariants' JSON); its figures are
+    empty."""
+
+    def __getattr__(self, name):
+        return _no_figures_attr(name)
+
+    def __call__(self, *args, **kwargs):
+        return _NoFigures()
+
+    def __getitem__(self, index):
+        return _NoFigures()
+
+    def savefig(self, path, *args, **kwargs):
+        open(path, "wb").close()
+
+
+def _no_figures_attr(name):
+    # Dunder lookups (``__file__``, ``__path__``: ``inspect`` walks every
+    # module) must fail as on a real module.
+    if name.startswith("__"):
+        raise AttributeError(name)
+    return _NoFigures()
+
+
+_FIGURE_MODULES = ("matplotlib", "matplotlib.pyplot", "torch.utils.tensorboard")
+
+
+class _FiguresStub:
+    """``sys.modules`` holds a matplotlib stand-in, and no TensorBoard, for
+    the block when matplotlib does not import; else nothing changes."""
+
+    def __enter__(self):
+        import importlib.machinery
+        import importlib.util
+        import types
+
+        self.installed = importlib.util.find_spec("matplotlib") is None
+        if self.installed:
+            pyplot = types.ModuleType("matplotlib.pyplot")
+            pyplot.__spec__ = importlib.machinery.ModuleSpec("matplotlib.pyplot", None)
+            pyplot.__getattr__ = _no_figures_attr
+
+            def subplots(nrows=1, ncols=1, **kwargs):
+                n = nrows * ncols
+                return _NoFigures(), (_NoFigures() if n == 1 else [_NoFigures() for _ in range(n)])
+
+            pyplot.subplots = subplots
+            mpl = types.ModuleType("matplotlib")
+            mpl.__spec__ = importlib.machinery.ModuleSpec("matplotlib", None)
+            mpl.use = lambda *args, **kwargs: None
+            mpl.pyplot = pyplot
+            # TensorBoard's figure summary renders through matplotlib's
+            # backends: without matplotlib the run dir's writer keeps no
+            # TensorBoard log (as where tensorboard does not import).
+            self.saved = {name: sys.modules.get(name) for name in _FIGURE_MODULES}
+            sys.modules.update({"matplotlib": mpl, "matplotlib.pyplot": pyplot, "torch.utils.tensorboard": None})
+        return self
+
+    def __exit__(self, *exc):
+        if self.installed:
+            for name, module in self.saved.items():
+                if module is None:
+                    sys.modules.pop(name, None)
+                else:
+                    sys.modules[name] = module
+
+
+def phase_tabular_table(smi, root, counts):
+    """The paper's tabular table on the card: power's published non-square
+    model from a raw-format file, an RNF and a CMF arm of 2 seeds each, each
+    arm's seeds split over two CLI calls with ``--grid-shard``; each run
+    dir tested (``--test --test-fid --resume``); then the table by
+    ``cmf_tpu_torch.analysis``. The Gram/log-det launches must equal the
+    training steps (a FID dataset's evaluations take no log-det) and are
+    added to ``counts``."""
+    import numpy as np
+    import torch
+    from cmf_tpu_torch.analysis import collect_fid, collect_test_loss
+    from cmf_tpu_torch.analysis.__main__ import main as analysis_main
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    phase_t0 = time.perf_counter()
+    data_root = os.path.join(root, "tabular_data")
+    runs_root = os.path.join(root, "tabular_table")
+    os.makedirs(os.path.join(data_root, "power"))
+    rng = np.random.default_rng(0)
+    # Eight columns, as the UCI file's: the loader drops columns 3 and 1.
+    np.save(os.path.join(data_root, "power", "data.npy"),
+            rng.normal(size=(TABLE_RAW_ROWS, 8)) @ rng.normal(size=(8, 8)))
+    streams = sys.stdout, sys.stderr
+    runs = []
+    try:
+        with _FiguresStub() as stub:
+            # The main path: the counts are read right after it.
+            gl.reset_launch_counts()
+            cs.reset_launch_counts()
+            t0 = time.perf_counter()
+            for label, arm in TABLE_ARMS:
+                for shard in range(TABLE_SEEDS):
+                    results = cli_main(TABLE_ARGV + arm + ["--data-root", data_root, "--logdir-root", runs_root,
+                                                           "--grid-shard", f"{shard}/{TABLE_SEEDS}"])
+                    _restore_streams(streams)
+                    assert len(results) == 1, f"{label}: shard {shard} ran {len(results)} jobs"
+                    runs.append((label, shard, results[0]))
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            fwd, bwd = gl.launch_counts()
+            coupler = cs.LAUNCHES
+            steps = sum(len(setup["trainer"].history) for _, _, setup in runs)
+            for label, shard, setup in runs:
+                trainer, config = setup["trainer"], setup["config"]
+                history = trainer.history
+                valid = _scalar_steps(setup["writer"].logdir, "valid/loss", "power")
+                print(f"[tabular-table] {smi}: {label} shard {shard}/{TABLE_SEEDS}: seed {config['seed']}, "
+                      f"lambda {config['metric_regularization_param']}, g_ij {config['g_ij_loss']}; "
+                      f"{trainer.train_loader.x.shape[0]:,} train rows of {trainer.train_loader.x.shape[1]}; "
+                      f"{len(history)} steps, losses {history[0][1]:.6g} -> {history[-1][1]:.6g}; "
+                      f"{len(captured_steps(trainer))} graph(s); valid/loss (FID) "
+                      f"{', '.join(f'{v:.6g}' for _, v in sorted(valid.items()))}")
+                assert config["dataset"] == "power" and not config.get("synthetic_data")
+                assert trainer.train_loader.x.shape[1] == 6 and len(trainer.train_loader) == 10
+                assert len(history) == 10 * TABLE_EPOCHS and not any(h[3] for h in history)
+                assert all(math.isfinite(h[1]) for h in history), f"{label}: non-finite training loss"
+                assert trainer.captured and len(captured_steps(trainer)) == 1, f"{label}: not one graph"
+            seeds = [setup["config"]["seed"] for _, _, setup in runs]
+            print(f"[tabular-table] {smi}: {len(runs)} runs ({steps} steps) in {train_s:.4f} s; Gram/log-det "
+                  f"launches (fwd, bwd) {fwd}, {bwd}; coupler {coupler}; matplotlib stand-in: {stub.installed}")
+            assert len(set(seeds)) == len(seeds), "two runs share a seed"
+            assert fwd == bwd == steps and coupler == 0, "Gram/log-det launches != training steps"
+            counts["GRAM_FWD"] += fwd
+            counts["GRAM_BWD"] += bwd
+
+            t0 = time.perf_counter()
+            for label, shard, setup in runs:
+                (tested,) = cli_main(["--test", "--test-fid", "--resume", setup["writer"].logdir])
+                _restore_streams(streams)
+                assert tested["config"]["num_fid_samples"] == 50_000 and tested["config"]["use_test_fid"]
+                results = tested["results"]
+                print(f"[tabular-table] {label} shard {shard}: --test --test-fid --resume "
+                      f"({tested['config']['num_fid_samples']:,} samples against the test split): {results}")
+                assert math.isfinite(results["fid"]), f"{label}: non-finite test FID"
+            test_s = time.perf_counter() - t0
+            print(f"[tabular-table] {smi}: the {len(runs)} tests took {test_s:.4f} s; Gram/log-det launches (fwd, "
+                  f"bwd) after them {gl.launch_counts()}")
+            assert gl.launch_counts() == (fwd, bwd), "a FID dataset's test took a log-det"
+    finally:
+        _restore_streams(streams)
+
+    fid_rows, loss_rows = collect_fid(runs_root), collect_test_loss(runs_root)
+    for name, rows in (("fid", fid_rows), ("loss", loss_rows)):
+        for r in rows:
+            print(f"[tabular-table] table ({name}): power, lambda {r['metric_regularization_param']}, d "
+                  f"{r['latent_dimension']}: {r['mean']:.6g} +- {r['stderr']:.6g} (n = {r['n']})")
+        assert [r["metric_regularization_param"] for r in rows] == [0, 1], f"{name}: not one row an arm"
+        assert all(r["n"] == TABLE_SEEDS and math.isfinite(r["mean"]) for r in rows), f"{name}: a row lacks a run"
+    csv_path = os.path.join(root, "tabular_table.csv")
+    rows = analysis_main(["tabular", "--runs", runs_root, "--out", csv_path])
+    with open(csv_path) as f:
+        print(f"[tabular-table] python -m cmf_tpu_torch.analysis tabular: {f.read().strip()!r}")
+    assert [(r["metric_regularization_param"], r["n"]) for r in rows] == [(0, 2), (1, 2)]
+
+    trainer = runs[-1][2]["trainer"]
+    x = next(iter(trainer.train_loader))
+    flags = trainer.objective.for_epoch(trainer.epoch)
+    replay_ms = cuda_ms(lambda: trainer.step(x, flags), iters=20, warmup=2)
+    print(f"[tabular-table] {smi}: power CMF captured step {replay_ms:.4f} ms back to back (CUDA events), "
+          f"{x.shape[0] / replay_ms * 1e3:.1f} samples/s (batch {x.shape[0]})")
+    profile_steps(trainer.step, x, flags, 3, "tabular-table", "captured: ")
+    print(f"[tabular-table] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
+# The non-square flagship with batch-norm layers (``--config batch_norm=True``:
+# snapshot mode under the passthrough wrapper) at published widths, the
+# likelihood from step 1; every split capped at 1,200 rows, 3 steps of 400.
+NONSQUARE_BN_MODEL = ["--model", "non-square", "--config", "batch_norm=True", "--config", "likelihood_warmup=False"]
+NONSQUARE_BN_ROWS, NONSQUARE_BN_EPOCHS = 1200, 2
+# mnist's non-square model with batch-norm ResNet couplers, 3 Hutchinson
+# steps of 50 under --nosave; each coupler's ResNet cut from the published
+# 8 blocks of 64 channels to 2 (width kept): with the batch statistics in
+# the decode, CG runs all of its d = 20 iterations, where it stops after
+# the first without batch-norm, and a full-depth step took 9.57 s on an
+# NVIDIA H100 80GB HBM3 at 700 W (40 s at batch 8 on a CPU). Its card step
+# at batch 8 against the CPU, as the image-square phase holds its
+# batch-norm models.
+NONSQUARE_BN_MNIST_ARGV = [
+    "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--nosave",
+    "--config", "resnet_batchnorm=True", "--config", "likelihood_warmup=False", "--config", "early_stopping=False",
+    "--config", "use_fid=False", "--config", "max_epochs=1", "--config", "max_dataset_size=150", "--config", "seed=0",
+    "--config", "g_hidden_channels=[64,64]",
+]
+NONSQUARE_BN_MNIST_BATCH = 8
+
+
+def phase_nonsquare_bn(smi, root, counts):
+    """Batch-norm in non-square models on the card: the flagship with
+    ``batch_norm=True`` into a run dir (its decode through the dense
+    program's ``bn`` steps and the Gram/log-det kernels; a refresh over the
+    stored rows before each evaluation), resumed and tested; its captured
+    steps against eager ones, the statistics too; a card step against the
+    CPU; then mnist with batch-norm ResNet couplers on the Hutchinson route,
+    card against CPU on the same probes. The Gram/log-det launches are
+    added to ``counts``."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    phase_t0 = time.perf_counter()
+    streams = sys.stdout, sys.stderr
+    argv = square_cif_argv(NONSQUARE_BN_MODEL, NONSQUARE_BN_ROWS, NONSQUARE_BN_EPOCHS)
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        (setup,) = cli_main(argv + ["--logdir-root", root])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        (fwd, bwd), coupler = gl.launch_counts(), cs.LAUNCHES
+        _restore_streams(streams)
+        trainer, density = setup["trainer"], setup["density"]
+        head = hutch_head(density)
+        program = head._dense_decode_program()
+        history, run_dir = trainer.history, setup["writer"].logdir
+        valid = _scalar_steps(run_dir, "valid/loss")
+        refreshes = trainer.timings["refresh"][0]
+        steps = len(history)
+        print(f"[nonsquare-bn] {smi}: miniboone non-square, batch_norm=True: {type(density).__name__} root, "
+              f"{density.passthrough_x.shape[0]} stored rows, {sum(p.numel() for p in density.parameters()):,} "
+              f"parameters; dense decode program of {len(program.steps)} steps "
+              f"({sum(s['kind'] == 'bn' for s in program.steps)} bn); {steps} steps, losses "
+              f"{', '.join(f'{h[1]:.6g}' for h in history)}; {len(captured_steps(trainer))} graph(s); valid/loss "
+              f"(FID) {valid}; {refreshes} refreshes; Gram/log-det launches (fwd, bwd) {fwd}, {bwd}, coupler "
+              f"{coupler}; the run {seconds:.4f} s")
+        assert all(math.isfinite(h[1]) for h in history) and not any(h[3] for h in history)
+        assert steps == 3 * NONSQUARE_BN_EPOCHS and density.passthrough_x.shape[0] == NONSQUARE_BN_ROWS
+        assert sum(s["kind"] == "bn" for s in program.steps) == 10, "the decode is not the dense bn program"
+        assert trainer.captured and len(captured_steps(trainer)) == 1, "not one graph"
+        assert sorted(valid) == list(range(1, NONSQUARE_BN_EPOCHS + 1)) and all(map(math.isfinite, valid.values()))
+        # One backward launch a step; one forward a step and one a refresh
+        # (the head's training elbo over the stored rows): a FID dataset's
+        # evaluations take no log-det.
+        assert bwd == steps and fwd == steps + refreshes and coupler == 0, "Gram/log-det launches != steps"
+        counts["GRAM_FWD"] += fwd
+        counts["GRAM_BWD"] += bwd
+        square_cif_resume_and_test("miniboone batch_norm", run_dir, NONSQUARE_BN_EPOCHS, 3, phase="nonsquare-bn",
+                                   metrics=("loss", "fid"))
+        _restore_streams(streams)
+    finally:
+        _restore_streams(streams)
+
+    probe = nosave_setup(NONSQUARE_BN_MODEL, "miniboone", NONSQUARE_BN_ROWS, 1)
+    second = nosave_setup(NONSQUARE_BN_MODEL, "miniboone", NONSQUARE_BN_ROWS, 1)
+    captured, eager, flags, batches = trainers_captured_vs_eager(probe["trainer"], second["trainer"], "nonsquare-bn")
+    state_rel = max_rel_diff(bn_buffers(captured.density), bn_buffers(eager.density))
+    print(f"[nonsquare-bn] the batch-norm statistics after the captured steps against the eager ones: max rel "
+          f"diff {state_rel:.3e} (tol {CAPTURED_TOL:g})")
+    assert state_rel <= CAPTURED_TOL, "the captured statistics drift"
+    x = batches[0]
+    replay_ms = cuda_ms(lambda: captured.step(x, flags), iters=20, warmup=2)
+    print(f"[nonsquare-bn] {smi}: captured step {replay_ms:.4f} ms back to back (CUDA events), "
+          f"{x.shape[0] / replay_ms * 1e3:.1f} samples/s (batch {x.shape[0]})")
+    profile_steps(captured.step, x, flags, 3, "nonsquare-bn", "captured: ")
+    card_vs_cpu(second, x, flags, "nonsquare-bn", STEP_LOSS_TOL, STEP_GRAD_TOL)
+
+    try:
+        cs.reset_launch_counts()
+        gl.reset_launch_counts()
+        t0 = time.perf_counter()
+        (mnist,) = cli_main(NONSQUARE_BN_MNIST_ARGV)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        _restore_streams(streams)
+    trainer = mnist["trainer"]
+    head = mnist_head(mnist["density"])
+    from cmf_tpu_torch.nets import BatchNorm2d
+
+    num_bn = sum(isinstance(m, BatchNorm2d) for m in mnist["density"].modules())
+    history = trainer.history
+    print(f"[nonsquare-bn] {smi}: mnist non-square, resnet_batchnorm=True ({num_bn} BatchNorm2d, solver "
+          f"{head._resolved_hutch_solver(head.latent_dimension)!r}): {len(history)} Hutchinson steps, losses "
+          f"{', '.join(f'{h[1]:.6g}' for h in history)}; route {'captured' if trainer.captured else 'eager'} "
+          f"(a dequantized image model's step is not capturable); coupler launches {cs.LAUNCHES}, Gram/log-det "
+          f"{gl.launch_counts()}; the run {seconds:.4f} s")
+    assert num_bn == 10 * 5 and len(history) == 3 and all(math.isfinite(h[1]) for h in history)
+    assert not any(h[3] for h in history)
+    assert cs.LAUNCHES == 0 and gl.launch_counts() == (0, 0), "a kernel launched on the batch-norm couplers"
+    x = next(iter(trainer.train_loader))
+    flags = trainer.objective.for_epoch(trainer.epoch)
+    step_time(trainer.step, x, flags, 1, "nonsquare-bn", "mnist resnet_batchnorm, eager: ")
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    xb = x[:NONSQUARE_BN_MNIST_BATCH]
+    draws = {"dequantization_noise": torch.rand(xb.shape, generator=gen, device=x.device),
+             "hutchinson_eps": torch.randn((xb.shape[0], head.latent_dimension, head.num_hutchinson_samples),
+                                           generator=gen, device=x.device)}
+    image_square_card_vs_cpu(mnist, xb, flags, "nonsquare-bn mnist resnet_batchnorm", draws)
+    print(f"[nonsquare-bn] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -3539,6 +3890,8 @@ def main():
         timed("square-2d", phase_square_2d, smi, root)
         timed("hutch-gram", phase_hutch_gram, smi, root, step_ms)
         timed("batchnorm", phase_batchnorm, smi, root)
+        timed("tabular-table", phase_tabular_table, smi, root, counts)
+        timed("nonsquare-bn", phase_nonsquare_bn, smi, root, counts)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

@@ -15,6 +15,13 @@ of the passthrough wrapper), a momentum in (0, 1) averages, 0 leaves them.
 Outside it, both directions use the running statistics. The four are
 persistent buffers under the JAX state's keys, four distinct tensors, moved
 by in-place copies so that a captured step keeps writing the same ones.
+
+The buffers hold values only. A non-square model's decode differentiates
+through the statistics its encoder's forward just took
+(``cmf_tpu/densities/nonsquare.py:104-114``), so the forward also keeps the
+live ``mean`` and ``var``, with their autograd graph (none with ``detach``),
+as ``live_stats``; the inverse and the dense decode program read them
+(``inverse_statistics``) inside ``batch_statistics``.
 """
 
 import numpy as np
@@ -51,6 +58,8 @@ class BatchNormBijection(Bijection):
         # The statistics of the last training forward, for its inverse.
         self.register_buffer("batch_mean", torch.zeros(param_shape))
         self.register_buffer("batch_var", torch.ones(param_shape))
+        # (mean, var) of the last training forward, graph and all.
+        self.live_stats = None
 
     def _average(self, data):
         return data.mean(dim=self.average_axes, keepdim=True)[0]
@@ -67,6 +76,7 @@ class BatchNormBijection(Bijection):
             var = self._average((x - mean) ** 2)
             if self.detach:
                 mean, var = mean.detach(), var.detach()
+            self.live_stats = (mean, var)
             with torch.no_grad():
                 m = self.momentum
                 if m == 1:
@@ -84,12 +94,19 @@ class BatchNormBijection(Bijection):
             z = z * torch.exp(self.log_scale) + self.shift
         return z, self._log_jac(var, x.shape[0])
 
+    def inverse_statistics(self):
+        """(mean, var) the inverse denormalises by: inside
+        ``batch_statistics`` those of the last training forward, live where
+        it kept them; else the running ones."""
+        if not self.batch_stats:
+            return self.running_mean, self.running_var
+        if self.live_stats is not None:
+            return self.live_stats
+        return self.batch_mean, self.batch_var
+
     def inverse(self, z):
         if self.apply_affine:
             z = (z - self.shift) * torch.exp(-self.log_scale)
-        if self.batch_stats:
-            mean, var = self.batch_mean, self.batch_var
-        else:
-            mean, var = self.running_mean, self.running_var
+        mean, var = self.inverse_statistics()
         x = z * torch.sqrt(var + self.eps) + mean
         return x, -self._log_jac(var, z.shape[0])

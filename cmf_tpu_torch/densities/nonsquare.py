@@ -22,6 +22,12 @@ torch).
 * CMF metric regularisers (non_square.py:87-99): L1 of diag(JᵀJ) (g_kk,
   Hutchinson-estimated on the stochastic path) and of its off-diagonal
   entries (g_ij, exact path only).
+* Batch-norm (nonsquare.py:104-114): the decode of a training elbo reads
+  the statistics its encoder's forward just took, through their graph
+  (``BatchNormBijection.live_stats``); the couplers' ``BatchNorm2d`` layers
+  normalise the decode's own inputs by their batch statistics and leave
+  their running statistics as the forward moved them
+  (``nets.running_statistics_held``).
 * The M-flow baseline head (``ManifoldFlowHeadDensity``,
   nonsquare.py:429-465): a training step takes no log-det at all, only the
   latent prior's elbo on the detached latent and the reconstruction term;
@@ -34,6 +40,7 @@ import torch
 
 from .base import Density
 from .elbo import GRAPH_SAFE_GENERATORS
+from ..nets import running_statistics_held
 from ..ops.cg import batched_cg
 from ..ops.chol import cholesky_logdet, spd_solve
 from ..ops.gram import gram_from_columns
@@ -140,7 +147,10 @@ class NonSquareHeadDensity(Density):
         return super().step_capturable
 
     def _decode_flat(self, u):
-        return self.prior.decode(u).reshape(u.shape[0], -1)
+        """The decode of a step: its couplers' batch-norm layers leave their
+        running statistics as the step's forward moved them."""
+        with running_statistics_held(self.prior):
+            return self.prior.decode(u).reshape(u.shape[0], -1)
 
     def _sample(self, num_samples, generator=None):
         return self.prior._sample(num_samples, generator)

@@ -13,9 +13,10 @@ package's ``main.py`` (values typed by ``ast.literal_eval``), for the subset
 the port carries so far: training, resuming, the analyses above,
 ``--profile-dir`` (a ``torch.profiler`` trace of the second epoch),
 ``--print-config``, ``--print-schema``, ``--print-model`` and
-``--print-num-params``. ``--resume`` reads the run's ``config.json`` and
-ignores the other settings. Without ``--device cpu`` it runs on the card,
-and raises where there is none.
+``--print-num-params``, and ``--num-seeds`` with ``--grid-shard i/n`` (this
+process's strided slice of the expanded config × seed jobs). ``--resume``
+reads the run's ``config.json`` and ignores the other settings. Without
+``--device cpu`` it runs on the card, and raises where there is none.
 """
 
 import argparse
@@ -23,10 +24,10 @@ import ast
 import contextlib
 import json
 import pprint
-import time
 from pathlib import Path
 
 from .config import expand_grid, get_config, get_datasets, get_models, get_schema
+from .parallel import grid_jobs, host_shard
 
 
 def parse_config_arg(key_value):
@@ -71,6 +72,8 @@ def build_parser():
                         help="Use shape-matched synthetic stand-ins for tabular and image data.")
     parser.add_argument("--profile-dir", default=None,
                         help="Write a torch.profiler trace of the first post-capture epoch here.")
+    parser.add_argument("--grid-shard", default=None,
+                        help="`i/n`: run the i-th of n slices of the expanded (config×seed) grid on this host.")
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
                         help="Default: the card. `cpu' runs the plain PyTorch path.")
     return parser
@@ -157,12 +160,12 @@ def main(argv=None):
         visualize_two_dim_manifold,
     )
 
-    jobs = []
-    for c in grid:
-        for _ in range(args.num_seeds):
-            if "seed" not in c or args.num_seeds > 1:
-                c = {**c, "seed": int(time.time() * 1e6) % 2**32}
-            jobs.append(dict(c))
+    # Expand (config, seed) jobs, then optionally take this host's shard
+    jobs = grid_jobs(grid, args.num_seeds)
+    if args.grid_shard:
+        i, n = (int(v) for v in args.grid_shard.split("/"))
+        jobs = host_shard(jobs, i, n)
+        print(f"Grid shard {i}/{n}: running {len(jobs)} of the expanded jobs")
 
     results = []
     with contextlib.suppress(KeyboardInterrupt):

@@ -10,6 +10,7 @@ from .core import (
     ResNet,
     batch_statistics,
     get_activation,
+    running_statistics_held,
 )
 
 __all__ = [
@@ -24,4 +25,5 @@ __all__ = [
     "ResNet",
     "batch_statistics",
     "get_activation",
+    "running_statistics_held",
 ]

@@ -220,6 +220,26 @@ class BatchNorm2d(nn.Module):
 
 
 @contextlib.contextmanager
+def running_statistics_held(module):
+    """No ``BatchNorm2d`` of ``module`` moves its running statistics for the
+    length of the block; inside ``batch_statistics`` they still normalise
+    by the batch. A non-square model's decode runs its couplers a second
+    time in a step, under ``torch.func`` transforms: the JAX package's
+    decode normalises each coupler's input by that input's own batch
+    statistics and differentiates through them, and drops the state it
+    returns."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    before = [m.updates_running for m in layers]
+    for m in layers:
+        m.updates_running = False
+    try:
+        yield
+    finally:
+        for m, b in zip(layers, before):
+            m.updates_running = b
+
+
+@contextlib.contextmanager
 def batch_statistics(module):
     """Every batch-norm layer of ``module`` (``BatchNorm2d`` and
     ``bijections.BatchNormBijection``: each module with a ``batch_stats``

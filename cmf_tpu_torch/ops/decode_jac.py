@@ -10,6 +10,10 @@ the tangent columns, with the tangent rules written out:
 * each inverse affine coupling (x = z·e^{−s} − t) folds its channel
   gather/scatter into zero-padded weight matrices, so every coupler layer is
   one ``((d+1)·B, C) @ (C, H)`` matmul;
+* each inverse batch-norm is one whole-group affine map, x = z·scale +
+  shift, with the shift on the primal group only; inside
+  ``batch_statistics`` it reads the statistics of the encoder's forward,
+  with their graph, else the running ones (decode_jac.py:296-309);
 * every group-dependent op is one whole-group formula gated by a (d+1, 1, 1)
   primal mask (the round-5 primal-mask form), never a slice + concatenate.
 
@@ -20,6 +24,7 @@ the plain decode serves only as an independent oracle in the tests.
 
 import torch
 
+from ..bijections.batchnorm import BatchNormBijection
 from ..bijections.coupling import AlternatingChannelwiseCouplingBijection
 from ..bijections.reshaping import (
     FlipBijection,
@@ -114,6 +119,19 @@ def _flat_acl(bij, activation, X, d):
     return E0 * (X - X[:1] * ((1.0 - m0) * L)) - S
 
 
+def _bn_inverse(bij, X, d):
+    """x = z·sqrt(var + eps) + mean, after the affine's inverse: one scale on
+    every group, the shift on the primal group only."""
+    mean, var = bij.inverse_statistics()
+    scale = torch.sqrt(var + bij.eps)
+    shift = mean
+    if bij.apply_affine:
+        scale = scale * torch.exp(-bij.log_scale)
+        shift = shift - bij.shift * scale
+    m0 = _mask0(d, X).reshape((d + 1,) + (1,) * (X.dim() - 1))
+    return X * scale + m0 * shift
+
+
 class DenseDecodeProgram:
     """Decode-order step list over a flat non-square chain. Steps hold the
     port's modules themselves, so the program reads their current
@@ -142,6 +160,8 @@ class DenseDecodeProgram:
             kind = step["kind"]
             if kind == "acl":
                 X = _flat_acl(step["bij"], step["activation"], X, d)
+            elif kind == "bn":
+                X = _bn_inverse(step["bij"], X, d)
             elif kind == "perm":
                 X = X[..., step["bij"].inverse_permutation]
             elif kind == "flip":
@@ -188,6 +208,8 @@ def extract_dense_decode_program(head):
             if len(bij.x_shape) != 1:
                 return None
             steps_down.append({"kind": "perm", "bij": bij})
+        elif isinstance(bij, BatchNormBijection):
+            steps_down.append({"kind": "bn", "bij": bij})
         elif isinstance(bij, AlternatingChannelwiseCouplingBijection):
             if len(bij.x_shape) != 1:
                 return None

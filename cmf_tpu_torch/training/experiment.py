@@ -73,26 +73,14 @@ def _coupler_nets(layer):
 
 def check_schema(schema):
     """Raise naming the first layer option or coupler net of ``schema`` that
-    waits for a later slice: an ``acl`` layer with u-channels, a net type
-    outside ``COUPLER_NETS``, or batch-norm in a non-square model (a
-    ``batch-norm`` layer, a ResNet coupler with ``batchnorm`` or a
-    GlowCNN): its decode reads the statistics of the encoder's forward
-    (``cmf_tpu/densities/nonsquare.py:104-114``), which waits with the rest
-    of ROADMAP module 6."""
-    types = {layer["type"] for layer in schema}
-    non_square = "non-square-head" in types
-    if non_square and "batch-norm" in types:
-        raise _later("the non-square model with `batch-norm' layers (ROADMAP module 6)")
+    waits for a later slice: an ``acl`` layer with u-channels, or a net type
+    outside ``COUPLER_NETS``."""
     for layer in schema:
-        ty = layer["type"]
-        if ty == "acl" and layer.get("num_u_channels", 0) > 0:
+        if layer["type"] == "acl" and layer.get("num_u_channels", 0) > 0:
             raise _later("the `acl' layer with u-channels")
         for net in _coupler_nets(layer):
             if net["type"] not in COUPLER_NETS:
                 raise _later(f"the `{net['type']}' coupler net")
-            batch_norm = net["type"] == "glow-cnn" or (net["type"] == "resnet" and net.get("batchnorm", True))
-            if non_square and batch_norm:
-                raise _later(f"the non-square model with batch-norm `{net['type']}' couplers (ROADMAP module 6)")
 
 
 def check_supported(config, write_to_disk=True):

@@ -228,17 +228,24 @@ def test_resume_restores_the_batch_norm_state(tmp_path, _quiet):
             torch.testing.assert_close(b, saved[n], rtol=0, atol=0, msg=n)
 
 
-def test_non_square_batch_norm_resnet_is_refused_before_any_work(monkeypatch):
-    """The non-square model with batch-norm ResNet couplers waits for the
-    decode's post-forward statistics; the refusal names it before any data
-    loads or any model is built."""
-    from cmf_tpu_torch.training import experiment
-
-    monkeypatch.setattr(experiment, "get_loaders", lambda *a, **k: pytest.fail("loaded data"))
-    monkeypatch.setattr(experiment, "get_density", lambda *a, **k: pytest.fail("built a model"))
-    with pytest.raises(NotImplementedError, match="non-square model with batch-norm `resnet' couplers"):
-        main(["--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--device", "cpu", "--nosave",
-              "--config", "resnet_batchnorm=True"])
+def test_non_square_batch_norm_resnet_is_refused_before_any_work(_quiet):
+    """The non-square model with batch-norm ResNet couplers is no longer
+    refused: ``--model non-square --dataset mnist --config
+    resnet_batchnorm=True`` builds and takes one CPU step at cut widths,
+    the couplers' running statistics moved by the forward; and every
+    image square command passes the config check."""
+    (setup,) = main([
+        "--model", "non-square", "--dataset", "mnist", "--synthetic-data", "--device", "cpu", "--nosave",
+        "--config", "resnet_batchnorm=True", "--config", "g_hidden_channels=[4]",
+        "--config", "prior_hidden_channels=[8]", "--config", "prior_num_density_layers=2",
+        "--config", "smaller_realnvp=True", "--config", "max_epochs=1", "--config", "max_dataset_size=50",
+        "--config", "train_batch_size=50", "--config", "likelihood_warmup=False", "--config", "use_fid=False",
+        "--config", "early_stopping=False", "--config", "seed=0",
+    ])
+    history = setup["trainer"].history
+    assert len(history) == 1 and all(math.isfinite(h[1]) for h in history)
+    means = [m.mean for m in setup["density"].modules() if isinstance(m, BatchNorm2d)]
+    assert len(means) == 6 * 3 and all(not torch.equal(m, torch.zeros_like(m)) for m in means)
     for name in COMMANDS:
         check_supported(command_config(name), write_to_disk=False)
 

@@ -1,6 +1,8 @@
 """Import hygiene of the port: ``cmf_tpu_torch`` and ``chip_smoke.py``
 import neither ``jax`` nor anything of ``cmf_tpu``, and importing them builds
-no kernel; the CLI without ``--device cpu`` refuses to run where there is no
+no kernel (nor pandas, h5py or matplotlib: the raw loaders, the run
+aggregation and the visualisers import them inside their calls); the CLI
+without ``--device cpu`` refuses to run where there is no
 CUDA device, for the miniboone and the mnist models; and ``chip_smoke.py``
 exits non-zero with no result there."""
 
@@ -43,6 +45,27 @@ def test_port_imports_no_jax_and_no_cmf_tpu():
     assert int(n) >= 34  # every module of the package was imported
     assert bad == "[]"
     assert (triton, built) == ("False", "[]")  # nothing built or compiled at import
+
+
+_PROBE_NEW = """
+import importlib, sys
+for name in ("cmf_tpu_torch.data.gaussian", "cmf_tpu_torch.data.tabular", "cmf_tpu_torch.parallel",
+             "cmf_tpu_torch.parallel.grid", "cmf_tpu_torch.analysis", "cmf_tpu_torch.analysis.collect",
+             "cmf_tpu_torch.analysis.__main__"):
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmf_tpu", "optax"))
+lazy = sorted(m for m in ("pandas", "h5py", "matplotlib") if m in sys.modules)
+print(bad, lazy)
+"""
+
+
+def test_loaders_grid_and_aggregation_import_no_jax_pandas_or_h5py():
+    """The raw loaders, ``data/gaussian.py``, the grid shard and the run
+    aggregation with its command line: no JAX, no ``cmf_tpu``, and pandas,
+    h5py and matplotlib only inside the calls that need them."""
+    proc = _run(["-c", _PROBE_NEW])
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[] []"
 
 
 def _cli_raises_without_a_card(dataset):

@@ -275,6 +275,43 @@ Phases, each of which fails the run on its own failure:
                   noise and probes (fp64 and fp32, the running statistics
                   too).
 
+The phases of ``compute_dtype="bfloat16"`` and the dense decode program's
+conv stages:
+
+3b. coupler-bf16 -- the coupler kernel's ``bf16=True`` variant against its
+                  plain version (bf16-rounded operands, fp32 sums) at the
+                  main-path and edge shapes, with the model's own weight
+                  scale, within 1e-2 of max |ref| and within a third of the
+                  plain bf16 version's gap to fp32, where a version that
+                  rounds only the weights must fail; its times, bound (the
+                  hidden convs at 989 TFLOP/s) and the ``ResNet`` module
+                  under the bf16 policy (cuDNN bf16) as its yardstick.
+25. bf16-flagship -- the flagship under ``--config compute_dtype=bfloat16``
+                  at its published width, 2 epochs of 10 steps with the
+                  likelihood from step 1: one graph, one launch of each
+                  Gram/log-det kernel a step (added to the kernels line);
+                  10 captured against 10 eager steps; ms a captured step
+                  beside the fp32 one of phase 5; a card step against the
+                  CPU (loss within 1e-2, gradients within 5e-2 of max
+                  |grad|).
+26. bf16-mnist -- mnist non-square at full width under bf16, 3 Hutchinson
+                  steps; ms a step beside the fp32 model's; a card step at
+                  batch 8 against the CPU at phase 25's limits;
+                  ``sample(250)`` through the coupler kernel's bf16 variant
+                  (10 bf16 launches, the kernels line's count, and no fp32
+                  one) and against the conv route.
+27. conv-gram  -- mnist at full width with ``--config
+                  hutchinson_solver=gram`` in fp32 and in bf16, 3 steps
+                  each: the d columns through the dense program's conv
+                  stages, against the vmap of JVPs at 10 images (1e-3 in
+                  fp32; in bf16 1e-1 on the card, the CPU test's 1e-2 on a
+                  CPU copy at 2 images, and the program at least a quarter
+                  as far from the fp32 columns as the bf16 JVP's); one bf16
+                  conv against its once-rounded exact sum; ms a step; the
+                  route, and the
+                  gram-route loss and backward captured in a CUDA graph
+                  with their draws passed in, against eager.
+
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. It imports nothing of JAX and nothing of ``cmf_tpu``.
@@ -355,10 +392,22 @@ MNIST_GRAD_TOL = 1e-3
 SAMPLE_TOL = 1e-4
 MNIST_SAMPLE_BATCH = 250
 MNIST_COUPLINGS = 10
+MNIST_HIDDEN = 64  # the width of the mnist ResNet couplers ([64]x8)
 # H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_BF16_FLOP_PER_S = 989e12
+# The coupler kernel's bf16=True variant against its plain version
+# (bf16-rounded operands, fp32 sums), max |err| / max |ref|: the two sum in
+# other orders, so a later conv's bf16 rounding of an activation can land
+# one bf16 ulp (2^-8 relative) apart. Within 1e-2, and within a third of the
+# plain bf16 version's own gap to fp32 at the same inputs: on an H100 the
+# kernel lands at 0.22 of that gap or less at every shape, a version that
+# rounds only the weights at 0.59 of it or more, and the fp32 arithmetic at
+# the whole of it.
+COUPLER_BF16_TOL = 1e-2
+COUPLER_BF16_GAP_SHARE = 1 / 3
 
 TRAIN_ARGV = [
     "--model", "non-square", "--dataset", "miniboone", "--synthetic-data", "--nosave",
@@ -458,6 +507,58 @@ TRAIN_MNIST_ARGV = [
     "--config", "use_fid=False", "--config", "max_epochs=1",
     "--config", "max_dataset_size=500", "--config", "seed=0",
 ]
+
+# compute_dtype=bfloat16: the coupler nets' matmuls and convs on
+# bf16-rounded operands, the rest fp32. The card against the CPU in bf16:
+# both round the same tensors, and differ where another order of fp32 sums
+# moves a bf16 rounding, so the limits are the CPU tests' against cmf_tpu.
+BF16_LOSS_TOL = 1e-2
+BF16_GRAD_TOL = 5e-2
+BF16 = ["--config", "compute_dtype=bfloat16"]
+# The flagship at its published width (D 43, d 21, 10 couplings of [128]x4,
+# prior 5 x [32]x2, batch 400) under bf16: TRAIN_ARGV's 2 epochs of 10 steps.
+BF16_FLAGSHIP_ARGV = TRAIN_ARGV + BF16
+# mnist non-square at full width (ResNet [64]x8, d 20, batch 50), Hutchinson
+# + CG: 3 steps of 50.
+BF16_MNIST_ARGV = [a if a != "max_dataset_size=500" else "max_dataset_size=150" for a in TRAIN_MNIST_ARGV]
+# The same with --config hutchinson_solver=gram: the d columns through the
+# dense program's conv stages; its columns and reconstruction against the
+# vmap of JVPs at CONV_GRAM_CHECK_BATCH images, max |err| / max |ref|.
+# In fp32 cuDNN sums the program's merged (d+1)·B batch and the JVPs'
+# primal and tangent batches in other orders, and the trained model grows
+# those roundings: on an H100 each route's columns lie from 3e-7 to 7e-4
+# of the fp64 columns, and the two routes from 2e-4 to past 1e-3 of each
+# other, from run to run. So the program is held to the JVPs where both
+# sum alike: in fp64 on a copy of the model within CONV_GRAM_FP64_TOL
+# (4e-16 to 6e-16 on an H100), and in fp32 with cuDNN off (the native conv
+# sums each image alike whatever the batch) within CONV_GRAM_TOL (1.6e-7
+# to 2.7e-7). Under cuDNN, as the path runs, its fp32 results are held
+# within CONV_GRAM_CUDNN_TOL of the fp64 ones, which a program in bf16
+# (3e-2 from fp32) fails.
+CONV_GRAM_ARGV = BF16_MNIST_ARGV + ["--config", "hutchinson_solver=gram"]
+CONV_GRAM_CHECK_BATCH = 10
+CONV_GRAM_TOL = 1e-3
+CONV_GRAM_FP64_TOL = 1e-9
+CONV_GRAM_CUDNN_TOL = 1e-2
+# In bf16 the two routes agree on the CPU, where a conv's outputs do not
+# depend on its batch: there (a copy of the model, CONV_GRAM_CPU_BATCH
+# images) they are held to the CPU test's limit, 1e-2 and below the bf16
+# gap to fp32 (tests/test_torch_decode_jac.py); an H100 machine's CPU gave
+# 2.6e-4 on the columns and 0 on the reconstruction. On the card cuDNN
+# sums the merged batch and the vmapped one in other orders: one bf16 conv
+# rounds its exact sum once but for ~3e-4 of its outputs (the phase prints
+# it), and ten couplings grow those moved roundings until the two routes'
+# columns lie 2.6e-2 to 3.7e-2 apart, about as far as each lies from the
+# fp32 columns (2e-2 to 5e-2, four batches on an H100). There the columns
+# are held within 1e-1 and the reconstruction within the CPU test's 1e-2;
+# and the program's bf16 results must lie at least a quarter as far from
+# the fp32 JVP's as the bf16 JVP's do (0.63 to 1.67 on an H100), which a
+# program that ignores the policy (0.05 or less) fails.
+CONV_GRAM_CPU_BATCH = 2
+CONV_GRAM_CPU_TOL = 1e-2
+CONV_GRAM_BF16_TOL = 1e-1
+CONV_GRAM_BF16_REC_TOL = 1e-2
+CONV_GRAM_BF16_MIN_SHARE = 0.25
 
 # The M-flow baseline (--baseline) on miniboone at full width with the
 # published defaults, cut to 6 epochs of 2 batches and the warm-up to start
@@ -681,11 +782,13 @@ def profiled_device_ms(fn, name, iters=50):
     return total_us / iters / 1e3 if total_us else None
 
 
-def bound_ms(n_bytes, n_flops, n_tf32_flops=0):
+def bound_ms(n_bytes, n_flops, n_tf32_flops=0, n_bf16_flops=0):
     """The least time for the work: bytes over the memory rate against
-    fp32-pipe FLOPs over 67 TFLOP/s plus tensor-core TF32 FLOPs over 495."""
+    fp32-pipe FLOPs over 67 TFLOP/s plus tensor-core TF32 FLOPs over 495
+    and bf16 FLOPs over 989."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (n_flops / PEAK_FP32_FLOP_PER_S + n_tf32_flops / PEAK_TF32_FLOP_PER_S) * 1e3
+    t_ops = (n_flops / PEAK_FP32_FLOP_PER_S + n_tf32_flops / PEAK_TF32_FLOP_PER_S
+             + n_bf16_flops / PEAK_BF16_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1788,6 +1891,110 @@ def phase_coupler_kernel():
                 "bound_ms": b_ms, "bound_by": b_by, "bound": "3xTF32 on the tensor cores",
                 "fp32_bound_ms": fp32_b_ms, "library_ms": library_ms,
             }
+    return summary
+
+
+def init_scale_coupler(b, c_in, c_out, hw, hidden, blocks, gen):
+    """The port's ResNet coupler on the card with its weights as the model
+    draws them, the head's ones and zeros perturbed, and a random input."""
+    import torch
+    from cmf_tpu_torch.nets import ResNet
+
+    net = ResNet(c_in, [hidden] * blocks, c_out, generator=gen).cuda()
+    with torch.no_grad():
+        for p in (net.head_w, net.head_b):
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).cuda())
+    x = torch.randn((b, c_in, hw, hw), generator=gen).cuda()
+    return net, x
+
+
+def bf16_weights_only(params):
+    """The coupler's kernel parameters with only the 3x3 conv weights
+    rounded to bf16: through the fp32 plain version, a bf16 variant that
+    forgot to round the activations."""
+    from cmf_tpu_torch.ops.coupler_stack import bf16_round
+
+    def conv(c):
+        return {**c, "w": bf16_round(c["w"])}
+
+    return {**params, "conv_in": conv(params["conv_in"]),
+            "blocks": [{k: conv(v) for k, v in bp.items()} for bp in params["blocks"]]}
+
+
+def phase_coupler_kernel_bf16():
+    """The coupler kernel's bf16=True variant against its plain version
+    (``coupler_stack_plain(..., bf16=True)``) at the main-path and edge
+    shapes, with the weights as the model draws them (the head perturbed),
+    within COUPLER_BF16_TOL and within COUPLER_BF16_GAP_SHARE of the plain
+    bf16 version's gap to fp32; a version that rounds only the weights
+    must land outside that limit, so the check tells bf16 from fp32 and
+    from a half-rounded arithmetic. At the main shape its time, device
+    time, plain time, bound (the 2K hidden convs at the bf16 tensor-core
+    rate) and library yardstick: the port's ``ResNet`` module under the
+    bf16 policy, through cuDNN bf16 convs."""
+    import torch
+    from cmf_tpu_torch.nets import compute_dtype
+    from cmf_tpu_torch.ops import coupler_stack as cs
+
+    gen = torch.Generator().manual_seed(0)
+    summary = None
+    for shape in COUPLER_MAIN + COUPLER_EDGE:
+        b, c_in, c_out, hw, hidden, blocks = shape
+        net, x = init_scale_coupler(*shape, gen)
+        tag = "main" if shape in COUPLER_MAIN else "edge"
+        with torch.no_grad():
+            params = net.kernel_params()
+            got = cs.coupler_stack_cuda(x, params, bf16=True)
+            ref = cs.coupler_stack_plain(x, params, bf16=True)
+            fp32 = cs.coupler_stack_plain(x, params)
+            weights_only = cs.coupler_stack_plain(x, bf16_weights_only(params))
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            abs_err = float((got - ref).abs().max())
+            err = abs_err / scale
+            gap = float((fp32 - ref).abs().max()) / scale
+            w_err = float((weights_only - ref).abs().max()) / scale
+            limit = min(COUPLER_BF16_TOL, COUPLER_BF16_GAP_SHARE * gap)
+            print(f"[kernels] coupler_stack bf16 {tag} B={b} {c_in}->{c_out} {hw}x{hw} hidden {hidden} "
+                  f"blocks {blocks}: max err / max |ref| {err:.3e} (tol {limit:.3e}: {COUPLER_BF16_GAP_SHARE:.3f} "
+                  f"of the fp32 arithmetic's {gap:.3e}, at most {COUPLER_BF16_TOL:g}), abs {abs_err:.3e}; "
+                  f"rounding only the weights {w_err:.3e} ({w_err / gap:.3f} of the gap)")
+            assert err <= limit and bool(torch.isfinite(got).all()), \
+                f"coupler kernel's bf16 variant disagrees with its plain version at {shape}"
+            assert w_err > limit, f"at {shape} the bf16 check cannot tell a weights-only rounding from bf16"
+            if shape != COUPLER_MAIN[0]:
+                continue
+            plan = cs.plan_launch(b, c_in, hidden, hw, hw)
+            ms = cuda_ms(lambda: cs.coupler_stack_cuda(x, params, bf16=True), iters=20, warmup=3)
+            device_ms = profiled_device_ms(lambda: cs.coupler_stack_cuda(x, params, bf16=True),
+                                           "coupler_stack_kernel", iters=10)
+            fp32_ms = cuda_ms(lambda: cs.coupler_stack_cuda(x, params), iters=20, warmup=3)
+            pack_ms = cuda_ms(lambda: cs.pack_weights(params, c_in, hidden, c_out, x.device, plan.kc, True),
+                              iters=20, warmup=3)
+            plain_ms = cuda_ms(lambda: cs.coupler_stack_plain(x, params, bf16=True), iters=5, warmup=1)
+            with compute_dtype("bfloat16"):
+                library_ms = cuda_ms(lambda: net(x), iters=20, warmup=3)
+                library_err = float((net(x) - ref).abs().max()) / float(ref.abs().max())
+        n_weights = sum(p.numel() for p in net.parameters())
+        n_bytes = 4 * (x.numel() + n_weights + got.numel())
+        n_flops = cs.flops(b, c_in, hidden, c_out, blocks, hw, hw)
+        n_tc = cs.tensor_core_flops(b, hidden, blocks, hw, hw)
+        b_ms, b_by = bound_ms(n_bytes, n_flops - n_tc, n_bf16_flops=n_tc)
+        dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
+        print(f"[kernels] coupler_stack bf16 B={b} {c_in}->{c_out} {hw}x{hw}: {ms:.6f} ms per call back to back "
+              f"(of which packing the weights {pack_ms:.6f} ms), kernel device time {dev_txt}, the fp32 "
+              f"variant {fp32_ms:.6f} ms in the same call, plain {plain_ms:.6f} ms, library (the ResNet module "
+              f"under the bf16 policy, cuDNN bf16, max err / max |ref| {library_err:.3e}) {library_ms:.6f} ms; "
+              f"bound {b_ms:.6f} ms ({b_by}: {n_tc:.6g} FLOP at 989 TFLOP/s + {n_flops - n_tc:.6g} at 67, "
+              f"{n_bytes} B), share {b_ms / ms:.3f}")
+        summary = {
+            "name": "coupler_stack_bf16", "route": "cuda", "source": "cmf_tpu_torch/csrc/coupler_stack.cu",
+            "replaces": "cmf_tpu/ops/pallas/coupler_stack.py:124", "launches": None,
+            "_launches_key": "COUPLER_BF16_LAUNCHES", "shape": list(shape), "max_abs_err": abs_err,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound": "bf16 on the tensor cores",
+            "library_ms": library_ms,
+        }
     return summary
 
 
@@ -3848,6 +4055,305 @@ def phase_nonsquare_bn(smi, root, counts):
     print(f"[nonsquare-bn] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+def phase_bf16_flagship(smi, counts, fp32_step_ms):
+    """The flagship under compute_dtype=bfloat16 at its published width:
+    the CLI's captured training with the likelihood on from step 1 (one
+    launch of each Gram/log-det kernel a step, added to ``counts``);
+    captured against eager steps; a card step against the CPU; ms a
+    captured step beside the fp32 one of the train phase."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.nets import get_compute_dtype, set_compute_dtype
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    phase_t0 = time.perf_counter()
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        (setup,) = cli_main(BF16_FLAGSHIP_ARGV)
+        torch.cuda.synchronize()
+        fwd, bwd = gl.launch_counts()
+        counts["GRAM_FWD"] += fwd
+        counts["GRAM_BWD"] += bwd
+        trainer = setup["trainer"]
+        history = trainer.history
+        lik_steps = sum(1 for h in history if not h[3])
+        print(f"[bf16-flagship] {smi}: miniboone non-square, compute_dtype {get_compute_dtype()}: "
+              f"{len(history)} steps, losses {history[0][1]:.6g} -> {history[-1][1]:.6g}; "
+              f"{len(captured_steps(trainer))} graph(s); Gram/log-det launches (fwd, bwd) {fwd}, {bwd}")
+        assert get_compute_dtype() == torch.bfloat16, "setup did not set the bf16 policy"
+        assert all(math.isfinite(h[1]) for h in history) and lik_steps == len(history) > 0
+        assert trainer.captured and len(captured_steps(trainer)) == 1, "the bf16 step ran no graph"
+        assert fwd == bwd == lik_steps, "Gram/log-det launches != likelihood steps"
+
+        captured, eager, flags, batches = captured_vs_eager(BF16_FLAGSHIP_ARGV, "bf16-flagship")
+        x = batches[0]
+        replay_ms = cuda_ms(lambda: captured.step(x, flags), iters=50, warmup=3)
+        print(f"[bf16-flagship] {smi}: captured bf16 step {replay_ms:.4f} ms back to back (CUDA events), "
+              f"{x.shape[0] / replay_ms * 1e3:.1f} samples/s, against the fp32 step's {fp32_step_ms:.4f} ms "
+              f"(train phase, same call)")
+        profile_steps(captured.step, x, flags, 5, "bf16-flagship", "captured: ")
+        card_vs_cpu(setup, x, flags, "bf16-flagship", BF16_LOSS_TOL, BF16_GRAD_TOL)
+    finally:
+        set_compute_dtype("float32")
+    print(f"[bf16-flagship] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+    return replay_ms
+
+
+def phase_bf16_mnist(smi, fp32_setup, counts):
+    """mnist non-square (Hutchinson + CG) at full width under bf16: 3
+    steps through the CLI; a card step against the CPU at batch 8 on the
+    same draws; ``sample(250)`` through the coupler kernel's bf16 variant
+    (one launch a coupling, none of the fp32 variant; the count goes to
+    ``counts``) against the conv route under the same policy; ms a step
+    beside the fp32 model's (train-mnist's trainer, same call)."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.nets import compute_dtype, get_compute_dtype, set_compute_dtype
+    from cmf_tpu_torch.ops import coupler_stack as cs
+
+    phase_t0 = time.perf_counter()
+    try:
+        cs.reset_launch_counts()
+        (setup,) = cli_main(BF16_MNIST_ARGV + BF16)
+        torch.cuda.synchronize()
+        trainer, density = setup["trainer"], setup["density"]
+        history = trainer.history
+        print(f"[bf16-mnist] {smi}: mnist non-square, compute_dtype {get_compute_dtype()}: {len(history)} steps, "
+              f"losses {', '.join(f'{h[1]:.6g}' for h in history)}; route "
+              f"{'captured' if trainer.captured else 'eager'}; coupler launches {cs.LAUNCHES}")
+        assert get_compute_dtype() == torch.bfloat16 and len(history) == 3
+        assert all(math.isfinite(h[1]) for h in history) and cs.LAUNCHES == 0
+
+        flags = trainer.objective.for_epoch(trainer.epoch)
+        x = next(iter(trainer.train_loader))
+        bf16_ms = step_time(trainer.step, x, flags, 3, "bf16-mnist", "bf16: ")
+        with compute_dtype("float32"):
+            ft = fp32_setup["trainer"]
+            fp32_ms = step_time(ft.step, x, ft.objective.for_epoch(ft.epoch), 3, "bf16-mnist", "fp32: ")
+        print(f"[bf16-mnist] {smi}: {bf16_ms:.4f} ms a bf16 step against {fp32_ms:.4f} ms in fp32 (host clock)")
+        head = mnist_head(density)
+        gen = torch.Generator(device=x.device).manual_seed(1)
+        xb = x[:8]
+        noise = torch.rand(xb.shape, generator=gen, device=x.device)
+        eps = torch.randn((xb.shape[0], head.latent_dimension, head.num_hutchinson_samples),
+                          generator=gen, device=x.device)
+        card_vs_cpu(setup, xb, flags, "bf16-mnist", BF16_LOSS_TOL, BF16_GRAD_TOL,
+                    dequantization_noise=noise, hutchinson_eps=eps)
+
+        # The bf16 sampling path: the counts are read right after it.
+        gen = torch.Generator(device=x.device).manual_seed(2)
+        cs.reset_launch_counts()
+        samples = density.sample(MNIST_SAMPLE_BATCH, generator=gen)
+        torch.cuda.synchronize()
+        bf16_launches, fp32_launches = cs.BF16_LAUNCHES, cs.LAUNCHES - cs.BF16_LAUNCHES
+        counts["COUPLER_BF16_LAUNCHES"] = bf16_launches
+        noise = torch.randn((MNIST_SAMPLE_BATCH, head.latent_dimension), generator=gen, device=x.device)
+        got = density.fixed_sample(noise)
+        with torch.no_grad():
+            ref = density._fixed_sample(noise)
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        n_calls = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            density.sample(MNIST_SAMPLE_BATCH, generator=gen)
+        torch.cuda.synchronize()
+        sample_ms = (time.perf_counter() - t0) / n_calls * 1e3
+        print(f"[bf16-mnist] sample({MNIST_SAMPLE_BATCH}) {tuple(samples.shape)} under bf16: coupler launches "
+              f"bf16 {bf16_launches}, fp32 {fp32_launches}; {sample_ms:.4f} ms a call (host clock); the kernel "
+              f"route against the conv route (cuDNN bf16, which also rounds each conv's output) on the same "
+              f"noise: max err / max |ref| {err:.3e}")
+        assert bf16_launches == MNIST_COUPLINGS and fp32_launches == 0, "sample() did not take the bf16 variant"
+        assert bool(torch.isfinite(samples).all()) and bool(torch.isfinite(got).all())
+    finally:
+        set_compute_dtype("float32")
+    print(f"[bf16-mnist] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
+def rel_max_err(got, ref):
+    return float((got - ref).abs().max()) / float(ref.abs().max())
+
+
+def bf16_conv_reading(batch, hidden, hw):
+    """One 3x3 conv of ``batch`` maps of ``hidden`` channels through the
+    policy's ``_conv2d`` on the card in bf16, against the same conv of the
+    bf16-rounded operands summed in fp64 and rounded to bf16 once: the
+    share of outputs that land on another bf16 value, and the largest
+    difference over max |output| (a bf16 ulp is 2^-8 = 3.9e-3 of a value)."""
+    import torch
+    import torch.nn.functional as F
+    from cmf_tpu_torch.nets import compute_dtype
+    from cmf_tpu_torch.nets.core import _conv2d
+    from cmf_tpu_torch.ops.coupler_stack import bf16_round
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((batch, hidden, hw, hw), generator=gen)
+    w = torch.randn((hidden, hidden, 3, 3), generator=gen) / (3 * hidden**0.5)
+    exact = F.conv2d(bf16_round(x).double(), bf16_round(w).double(), padding=1)
+    once = exact.float().to(torch.bfloat16).float()
+    with torch.no_grad(), compute_dtype("bfloat16"):
+        got = _conv2d(x.cuda(), w.cuda()).cpu()
+    return float((got != once).double().mean()), rel_max_err(got, once)
+
+
+def conv_gram_fp32_checks(setup, x, z, program_out, jvp_out):
+    """The fp32 checks of the conv program: against the vmap of JVPs in fp64
+    on a copy of the model (CONV_GRAM_FP64_TOL) and in fp32 with cuDNN off
+    (CONV_GRAM_TOL); its results under cuDNN, as the path runs, against the
+    fp64 JVPs' (CONV_GRAM_CUDNN_TOL), the fp32 JVPs' distance beside them."""
+    import torch
+    from cmf_tpu_torch.models import get_density
+
+    head = mnist_head(setup["density"])
+    wide = get_density(setup["schema"], x_shape=tuple(x.shape[1:]), device=z.device)
+    wide.load_state_dict(setup["density"].state_dict())
+    wide_head = mnist_head(wide.double())
+    with torch.no_grad():
+        program_64 = wide_head._dense_decode_program()(z.double())
+        jvp_64 = wide_head._generic_jacobian(z.double())
+        with torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=False, allow_tf32=False):
+            program_native = head._dense_decode_program()(z)
+            jvp_native = head._generic_jacobian(z)
+    torch.cuda.synchronize()
+    ok = True
+    for i, what in enumerate(("reconstruction", "columns")):
+        exact = rel_max_err(program_64[i], jvp_64[i])
+        native = rel_max_err(program_native[i], jvp_native[i])
+        cudnn = rel_max_err(program_out[i].double(), jvp_64[i])
+        cudnn_jvp = rel_max_err(jvp_out[i].double(), jvp_64[i])
+        print(f"[conv-gram] float32 {what}: the program against the vmap of JVPs in fp64 {exact:.3e} (tol "
+              f"{CONV_GRAM_FP64_TOL:g}), in fp32 with cuDNN off {native:.3e} (tol {CONV_GRAM_TOL:g}); under "
+              f"cuDNN from the fp64 JVPs' the program {cudnn:.3e} (tol {CONV_GRAM_CUDNN_TOL:g}) and the fp32 "
+              f"JVPs {cudnn_jvp:.3e}")
+        ok = ok and exact <= CONV_GRAM_FP64_TOL and native <= CONV_GRAM_TOL and cudnn <= CONV_GRAM_CUDNN_TOL
+    assert ok, "the conv program's fp32 columns disagree with the JVPs"
+
+
+def conv_gram_bf16_checks(setup, x, z, program_out, jvp_out):
+    """The bf16 checks of the conv program (CONV_GRAM_BF16_TOL and what
+    stands beside it): on the card against the vmap of JVPs and against the
+    fp32 JVP; on a CPU copy of the model at CONV_GRAM_CPU_BATCH images
+    against the vmap of JVPs there; the card's bf16 results against the
+    CPU's; and one bf16 conv of the card against the once-rounded sum."""
+    import torch
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.nets import compute_dtype
+
+    head = mnist_head(setup["density"])
+    with torch.no_grad(), compute_dtype("float32"):
+        jvp_32 = head._generic_jacobian(z)
+    cpu = get_density(setup["schema"], x_shape=tuple(x.shape[1:]), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in setup["density"].state_dict().items()})
+    cpu_head = mnist_head(cpu)
+    zc = z[:CONV_GRAM_CPU_BATCH].cpu()
+    with torch.no_grad():
+        cpu_program = cpu_head._dense_decode_program()(zc)
+        cpu_jvp = cpu_head._generic_jacobian(zc)
+        with compute_dtype("float32"):
+            cpu_jvp_32 = cpu_head._generic_jacobian(zc)
+    ok = True
+    for i, (what, tol) in enumerate((("reconstruction", CONV_GRAM_BF16_REC_TOL), ("columns", CONV_GRAM_BF16_TOL))):
+        err = rel_max_err(program_out[i], jvp_out[i])
+        gap = rel_max_err(jvp_out[i], jvp_32[i])
+        away = rel_max_err(program_out[i], jvp_32[i])
+        cpu_err = rel_max_err(cpu_program[i], cpu_jvp[i])
+        cpu_gap = rel_max_err(cpu_jvp[i], cpu_jvp_32[i])
+        card = [t[i][:CONV_GRAM_CPU_BATCH] if i == 0 else t[i][:, :CONV_GRAM_CPU_BATCH] for t in (program_out, jvp_out)]
+        vs_cpu = [rel_max_err(c, r.cuda()) for c, r in zip(card, (cpu_program[i], cpu_jvp[i]))]
+        print(f"[conv-gram] bfloat16 {what}: the program against the vmap of JVPs {err:.3e} (tol {tol:g}); "
+              f"from the fp32 JVP's, the program {away:.3e} and the bf16 JVP {gap:.3e}, a share of "
+              f"{away / gap:.3f} (at least {CONV_GRAM_BF16_MIN_SHARE:g}); on the CPU at {CONV_GRAM_CPU_BATCH} "
+              f"images the program against the JVPs {cpu_err:.3e} (tol {CONV_GRAM_CPU_TOL:g} and below the "
+              f"CPU's bf16 gap {cpu_gap:.3e}); the card against the CPU, program {vs_cpu[0]:.3e}, JVPs "
+              f"{vs_cpu[1]:.3e}")
+        ok = ok and err <= tol and away >= CONV_GRAM_BF16_MIN_SHARE * gap
+        ok = ok and cpu_err <= CONV_GRAM_CPU_TOL and cpu_err < cpu_gap
+    for batch in (CONV_GRAM_CHECK_BATCH, CONV_GRAM_CHECK_BATCH * (z.shape[1] + 1)):
+        share, diff = bf16_conv_reading(batch, MNIST_HIDDEN, 14)
+        print(f"[conv-gram] one bf16 3x3 conv, {batch} maps of {MNIST_HIDDEN} channels at 14x14, on the card "
+              f"against its exact sum rounded once: {share:.3e} of the outputs on another bf16 value, max "
+              f"|difference| / max |output| {diff:.3e}")
+    assert ok, "the conv program's bf16 columns disagree with the JVPs, or do not round as bf16"
+
+
+def phase_conv_gram(smi):
+    """mnist at full width with hutchinson_solver=gram, in fp32 and bf16:
+    3 steps through the CLI, the d columns decoded by the dense program's
+    conv stages; at one batch the program's columns against the vmap of
+    JVPs on the card (conv_gram_fp32_checks, conv_gram_bf16_checks); ms a
+    step; whether the step is captured, and whether
+    the head's gram-route loss and backward capture in a CUDA graph with
+    their draws passed in."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.nets import compute_dtype, set_compute_dtype
+    from cmf_tpu_torch.training import elbo_loss
+
+    phase_t0 = time.perf_counter()
+    try:
+        for dtype in ("float32", "bfloat16"):
+            (setup,) = cli_main(CONV_GRAM_ARGV + ["--config", f"compute_dtype={dtype}"])
+            torch.cuda.synchronize()
+            trainer, density = setup["trainer"], setup["density"]
+            head = mnist_head(density)
+            program = head._dense_decode_program()
+            history = trainer.history
+            print(f"[conv-gram] {smi}: mnist, hutchinson_solver=gram, {dtype}: solver "
+                  f"{head._resolved_hutch_solver(head.latent_dimension)!r}, dense program of {len(program.steps)} "
+                  f"steps (has_conv {program.has_conv}); {len(history)} steps, losses "
+                  f"{', '.join(f'{h[1]:.6g}' for h in history)}; route {'captured' if trainer.captured else 'eager'} "
+                  f"(density step_capturable {density.step_capturable}, head {head.step_capturable})")
+            assert program.has_conv and head._resolved_hutch_solver(head.latent_dimension) == "gram"
+            assert len(history) == 3 and all(math.isfinite(h[1]) for h in history)
+
+            flags = trainer.objective.for_epoch(trainer.epoch)
+            x = next(iter(trainer.train_loader))
+            step_time(trainer.step, x, flags, 3, "conv-gram", f"{dtype}: ")
+            with torch.no_grad():
+                z = density.extract_latent(x[:CONV_GRAM_CHECK_BATCH])  # the head's d coordinates
+                rec_p, cols_p = program(z)
+                rec_g, cols_g = head._generic_jacobian(z)
+            torch.cuda.synchronize()
+            err, rec_err = rel_max_err(cols_p, cols_g), rel_max_err(rec_p, rec_g)
+            print(f"[conv-gram] {dtype}: at {CONV_GRAM_CHECK_BATCH} images the program's {tuple(cols_p.shape)} "
+                  f"columns against the vmap of JVPs: max err / max |ref| {err:.3e}, the reconstruction "
+                  f"{rec_err:.3e}")
+            if dtype == "float32":
+                conv_gram_fp32_checks(setup, x, z, (rec_p, cols_p), (rec_g, cols_g))
+            else:
+                conv_gram_bf16_checks(setup, x, z, (rec_p, cols_p), (rec_g, cols_g))
+
+            # Whether the gram route's step captures with the conv program,
+            # its dequantization noise and probes passed in.
+            gen = torch.Generator(device=x.device).manual_seed(4)
+            noise = torch.rand(x.shape, generator=gen, device=x.device)
+            eps = torch.randn((x.shape[0], head.latent_dimension, 1), generator=gen, device=x.device)
+
+            def loss_and_backward():
+                loss = elbo_loss(density, x, flags, dequantization_noise=noise, hutchinson_eps=eps)
+                loss.backward()
+                return loss.detach()
+
+            with compute_dtype(dtype):
+                try:
+                    graph, out = capture(loss_and_backward)
+                    graph.replay()
+                    eager_loss = float(loss_and_backward())
+                    torch.cuda.synchronize()
+                    print(f"[conv-gram] {dtype}: the gram-route loss and backward captured in a CUDA graph; "
+                          f"replay loss {float(out):.8g} against eager {eager_loss:.8g}")
+                    assert abs(float(out) - eager_loss) <= CAPTURED_TOL * abs(eager_loss)
+                except RuntimeError as e:
+                    print(f"[conv-gram] {dtype}: the gram-route step does not capture: {str(e)[:300]}")
+                    raise
+            for p in density.parameters():
+                p.grad = None
+    finally:
+        set_compute_dtype("float32")
+    print(f"[conv-gram] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -3865,7 +4371,8 @@ def main():
 
     name, smi = timed("device", phase_device)
     timed("build", phase_build)
-    kernels = timed("kernels", phase_kernels) + [timed("coupler", phase_coupler_kernel)]
+    kernels = timed("kernels", phase_kernels) + [timed("coupler", phase_coupler_kernel),
+                                                 timed("coupler-bf16", phase_coupler_kernel_bf16)]
     timed("kernels-small", phase_kernels_small)
     counts, step_ms = timed("train", phase_train)
     timed("captured", phase_captured, step_ms)
@@ -3892,6 +4399,9 @@ def main():
         timed("batchnorm", phase_batchnorm, smi, root)
         timed("tabular-table", phase_tabular_table, smi, root, counts)
         timed("nonsquare-bn", phase_nonsquare_bn, smi, root, counts)
+        timed("bf16-flagship", phase_bf16_flagship, smi, counts, step_ms)
+        timed("bf16-mnist", phase_bf16_mnist, smi, setup, counts)
+        timed("conv-gram", phase_conv_gram, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

@@ -2,9 +2,13 @@
 // for Hopper (sm_90a).
 //
 // Replaces the Pallas/TPU kernel cmf_tpu/ops/pallas/coupler_stack.py::_kernel
-// (:124, launched by _call :169 through fused_resnet_coupler :198), in its
-// default arithmetic (bf16=False): fp32 inputs, weights, biases, residual
-// stream, outputs and sums.
+// (:124, launched by _call :169 through fused_resnet_coupler :198), in both
+// its arithmetics. bf16=False (cmf_coupler_stack_fwd): fp32 inputs, weights,
+// biases, residual stream, outputs and sums. bf16=True
+// (cmf_coupler_stack_fwd_bf16, :83-147): every 3×3 conv, conv_in included,
+// multiplies the bf16-rounded shifted map by the bf16-rounded weight and sums
+// in fp32; the residual stream, the biases, the 1×1 conv and the head stay
+// fp32.
 //
 // Per image b, with hidden width Hd and K residual blocks, it computes
 // ResNet.apply of the batchnorm-free coupler net (cmf_tpu/nets/core.py:271):
@@ -54,8 +58,19 @@
 //   the fp32 pipes add into the running sum (conv3x3_mma).
 // - conv_in (K = 9·C_in) and the 1×1 conv with its tanh head are small and
 //   stay on the fp32 pipes.
+//
+// The bf16 variant (template parameter BF) keeps all of this but the
+// arithmetic of the Hd×Hd convs: one mma.sync m16n8k16 bf16 pass with fp32
+// sums, no hi/lo split, the weights packed by the wrapper as bf16 fragments
+// (ops/coupler_stack.py::bf16_fragments) and the activations rounded to bf16
+// (to nearest, ties to even, as astype) as they are loaded into fragments.
+// The mma's k index 8r + 2·tig + j stands for input channel 8r + tig + 4j,
+// so a lane loads the channels the TF32 path's lane loads. conv_in runs on
+// the fp32 pipes on the bf16-rounded input and weights (exact products).
+// Bound: 926 MFLOP an image at 989 TFLOP/s, 0.234 ms at B=250.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,7 +90,7 @@ constexpr int kSmemLimit = 232448;
 
 struct Args {
   const float* x;      // (B, C_in, H, W)
-  const float* frags;  // hi/lo TF32 fragments of the 2K Hd×Hd convs, in stream order
+  const float* frags;  // hi/lo TF32 (or bf16) fragments of the 2K Hd×Hd convs, in stream order
   const float* small;  // w_in [C_in][9][Hd]; biases [2K][Hd]; w_out [Hd][C_out]; b_out, head_w, head_b
   float* out;          // (B, C_out, H, W)
   int C_in, H, W, Hd, num_blocks, C_out, cluster, S, kc;
@@ -119,6 +134,29 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint4& a, uin
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1), "f"(0.f));
 }
 
+// Two fp32 values rounded to bf16 (to nearest, ties to even) in one
+// register, lo in the low half: a bf16x2 operand of mma.sync.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1), "f"(0.f));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
@@ -129,12 +167,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 16-byte copies a thread of one weight chunk: KC input channels × 32·MW
-// outputs × hi/lo floats.
-template <int MW, int KC>
-__host__ __device__ constexpr int ring_copies() {
-  static_assert(KC * 32 * MW * 2 % (4 * kThreads) == 0, "a chunk splits evenly over the threads");
-  return KC * 32 * MW * 2 / (4 * kThreads);
+// 16-byte copies in one weight chunk: KC input channels × 32·MW outputs ×
+// hi/lo floats in the TF32 stream, a quarter of that in the bf16 one (2
+// bytes a weight, no lo part).
+template <int MW, int KC, bool BF>
+__host__ __device__ constexpr int chunk_vecs() {
+  return BF ? KC * 32 * MW / 8 : KC * 32 * MW * 2 / 4;
 }
 
 // The weight stream: chunk c of `total` goes to ring stage c % kStages.
@@ -142,21 +180,32 @@ struct Ring {
   float* base;
   const float* src;
   int chunk_floats, total;
-  // kCopies 16-byte copies a thread: chunk_floats == 4 · kCopies · kThreads.
-  template <int kCopies>
+  // kVec 16-byte copies a chunk (chunk_floats == 4 · kVec): a whole number
+  // a thread, or one for each of the first kVec threads (the bf16 stream).
+  // The bf16 stream's loop runs to the runtime count: a compile-time guard
+  // there took the main-path bf16 instance to the 128-register cap with a
+  // spill, 8% slower on an H100.
+  template <int kVec>
   __device__ __forceinline__ void issue(int c) const {
+    static_assert(kVec % kThreads == 0 || kVec < kThreads, "a chunk splits evenly over the threads");
     if (c < total) {
-      const float4* g = reinterpret_cast<const float4*>(src + (size_t)c * chunk_floats) + threadIdx.x;
-      float4* s = reinterpret_cast<float4*>(base + (c % kStages) * chunk_floats) + threadIdx.x;
+      const float4* g = reinterpret_cast<const float4*>(src + (size_t)c * chunk_floats);
+      float4* s = reinterpret_cast<float4*>(base + (c % kStages) * chunk_floats);
+      if constexpr (kVec % kThreads == 0) {
 #pragma unroll
-      for (int q = 0; q < kCopies; ++q) cp_async16(s + q * kThreads, g + q * kThreads);
+        for (int q = 0; q < kVec / kThreads; ++q) cp_async16(s + q * kThreads + threadIdx.x, g + q * kThreads + threadIdx.x);
+      } else {
+        for (int q = threadIdx.x; q < chunk_floats / 4; q += kThreads) cp_async16(s + q, g + q);
+      }
     }
     cp_async_commit();  // an empty group past the end keeps the wait counts uniform
   }
 };
 
 // dst[o][p] (+)= bias[o] + Σ_{tap,i} W[o][tap,i] · relu(src[i][p + tap]) over
-// the band, 3×TF32 on the tensor cores. Consumes 9·Hd/KC ring chunks.
+// the band on the tensor cores: 3×TF32, or with BF one m16n8k16 bf16 mma a
+// k-step of 16 input channels and tile pair, A from the ring (bf16
+// fragments) and B rounded from the map. Consumes 9·Hd/KC ring chunks.
 //
 // Warp w owns m-tiles (w % 2)·MW .. +MW (MW·16 output channels) and the n
 // tiles w/2 + 8·j, j < NT, of 8 band pixels each. A tile past the band reads
@@ -169,8 +218,9 @@ struct Ring {
 // each span of kSpan k-steps go into a fresh partial sum instead, which the
 // fp32 pipes add into the running sum (round to nearest): ~1e-5. The mmas of
 // a k-step are issued term by term over all (m, n) tile pairs, so two mmas
-// into the same partial are MW·NT issues apart.
-template <int MW, int NT, int KC>
+// into the same partial are MW·NT issues apart. The bf16 mmas of a chunk
+// sum into one fresh partial the same way.
+template <int MW, int NT, int KC, bool BF>
 __device__ __forceinline__ void conv3x3_mma(const float* src, float* dst, bool accumulate,
                                             const float* __restrict__ bias, const Args& a,
                                             const Band& band, const Ring& ring, int& chunk) {
@@ -197,49 +247,74 @@ __device__ __forceinline__ void conv3x3_mma(const float* src, float* dst, bool a
     for (int cb = 0; cb < n_cb; ++cb, ++chunk) {
       cp_async_wait<kStages - 2>();
       __syncthreads();  // chunk landed for every thread; the stage refilled below is free
-      ring.template issue<ring_copies<MW, KC>()>(chunk + kStages - 1);
+      ring.template issue<chunk_vecs<MW, KC, BF>()>(chunk + kStages - 1);
       const uint4* frag =
           reinterpret_cast<const uint4*>(ring.base + (chunk % kStages) * ring.chunk_floats);
       const float* s0 = src + (cb * KC + tig) * S + off;
       float part[MW][NT][4];
+      if constexpr (BF) {
 #pragma unroll
-      for (int ks = 0; ks < KC / 8; ++ks, s0 += 8 * S) {
-        uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          split_tf32(fmaxf(s0[pb[j]], 0.f), bh[j][0], bl[j][0]);
-          split_tf32(fmaxf(s0[4 * S + pb[j]], 0.f), bh[j][1], bl[j][1]);
-        }
-        uint4 ah[MW], al[MW];
-#pragma unroll
-        for (int m = 0; m < MW; ++m) {
-          ah[m] = frag[((ks * mt_all + m0 + m) * 2 + 0) * 32 + lane];
-          al[m] = frag[((ks * mt_all + m0 + m) * 2 + 1) * 32 + lane];
-        }
-        // part holds the sum over kSpan k-steps: zero-initialised by the
-        // first mma of the span, added into acc after the last.
-        constexpr int span = kSpan < KC / 8 ? kSpan : KC / 8;
-        const bool first = ks % span == 0, last = ks % span == span - 1;
-#pragma unroll
-        for (int m = 0; m < MW; ++m)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {  // small terms first
-            if (first) mma_tf32_zero(part[m][j], al[m], bh[j][0], bh[j][1]);
-            else mma_tf32(part[m][j], al[m], bh[j][0], bh[j][1]);
-          }
-#pragma unroll
-        for (int m = 0; m < MW; ++m)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_tf32(part[m][j], ah[m], bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int m = 0; m < MW; ++m)
+        for (int ks = 0; ks < KC / 16; ++ks, s0 += 16 * S) {
+          uint32_t b[NT][2];
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
-            mma_tf32(part[m][j], ah[m], bh[j][0], bh[j][1]);
-            if (last)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[m][j][e] += part[m][j][e];
+            b[j][0] = pack_bf16(fmaxf(s0[pb[j]], 0.f), fmaxf(s0[4 * S + pb[j]], 0.f));
+            b[j][1] = pack_bf16(fmaxf(s0[8 * S + pb[j]], 0.f), fmaxf(s0[12 * S + pb[j]], 0.f));
           }
+          uint4 af[MW];
+#pragma unroll
+          for (int m = 0; m < MW; ++m) af[m] = frag[(ks * mt_all + m0 + m) * 32 + lane];
+#pragma unroll
+          for (int m = 0; m < MW; ++m)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              if (ks == 0) mma_bf16_zero(part[m][j], af[m], b[j][0], b[j][1]);
+              else mma_bf16(part[m][j], af[m], b[j][0], b[j][1]);
+              if (ks == KC / 16 - 1)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[m][j][e] += part[m][j][e];
+            }
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < KC / 8; ++ks, s0 += 8 * S) {
+          uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            split_tf32(fmaxf(s0[pb[j]], 0.f), bh[j][0], bl[j][0]);
+            split_tf32(fmaxf(s0[4 * S + pb[j]], 0.f), bh[j][1], bl[j][1]);
+          }
+          uint4 ah[MW], al[MW];
+#pragma unroll
+          for (int m = 0; m < MW; ++m) {
+            ah[m] = frag[((ks * mt_all + m0 + m) * 2 + 0) * 32 + lane];
+            al[m] = frag[((ks * mt_all + m0 + m) * 2 + 1) * 32 + lane];
+          }
+          // part holds the sum over kSpan k-steps: zero-initialised by the
+          // first mma of the span, added into acc after the last.
+          constexpr int span = kSpan < KC / 8 ? kSpan : KC / 8;
+          const bool first = ks % span == 0, last = ks % span == span - 1;
+#pragma unroll
+          for (int m = 0; m < MW; ++m)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {  // small terms first
+              if (first) mma_tf32_zero(part[m][j], al[m], bh[j][0], bh[j][1]);
+              else mma_tf32(part[m][j], al[m], bh[j][0], bh[j][1]);
+            }
+#pragma unroll
+          for (int m = 0; m < MW; ++m)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_tf32(part[m][j], ah[m], bl[j][0], bl[j][1]);
+#pragma unroll
+          for (int m = 0; m < MW; ++m)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              mma_tf32(part[m][j], ah[m], bh[j][0], bh[j][1]);
+              if (last)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[m][j][e] += part[m][j][e];
+            }
+        }
       }
     }
   }
@@ -291,7 +366,7 @@ __device__ void copy_halos(float* map, const Args& a, const Band& band, cg::clus
   }
 }
 
-template <int MW, int NT, int KC>
+template <int MW, int NT, int KC, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) coupler_stack_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* hmap = reinterpret_cast<float*>(smem4);
@@ -310,9 +385,9 @@ __global__ void __launch_bounds__(kThreads, 1) coupler_stack_kernel(const Args a
   Ring ring;
   ring.base = tmap + a.Hd * a.S;
   ring.src = a.frags;
-  ring.chunk_floats = KC * a.Hd * 2;
+  ring.chunk_floats = BF ? KC * a.Hd / 2 : KC * a.Hd * 2;  // bf16: 2 bytes a weight, no lo part
   ring.total = a.num_blocks * 2 * 9 * (a.Hd / KC);
-  for (int c = 0; c < kStages - 1; ++c) ring.template issue<ring_copies<MW, KC>()>(c);
+  for (int c = 0; c < kStages - 1; ++c) ring.template issue<chunk_vecs<MW, KC, BF>()>(c);
 
   // Both maps to zero: the pad columns, and the halo rows at the image border.
   for (int q = threadIdx.x; q < a.Hd * S / 2; q += kThreads) smem4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -326,11 +401,16 @@ __global__ void __launch_bounds__(kThreads, 1) coupler_stack_kernel(const Args a
     const int rem = q - ch * (band.rows + 2) * W;
     const int rr = rem / W, c = rem - rr * W;
     const int r = band.r0 - 1 + rr;
-    if (r >= 0 && r < a.H) tmap[ch * S + 1 + rr * band.Wp + c] = __ldg(xb + ((size_t)ch * a.H + r) * W + c);
+    if (r >= 0 && r < a.H) {
+      const float v = __ldg(xb + ((size_t)ch * a.H + r) * W + c);
+      tmap[ch * S + 1 + rr * band.Wp + c] = BF ? round_bf16(v) : v;
+    }
   }
   __syncthreads();
 
   // conv_in on the fp32 pipes: a thread owns 8 output channels of a pixel.
+  // In the bf16 variant the input (above) and w_in (by the wrapper) are
+  // bf16-rounded, so each product is exact.
   const float* w_in = a.small;
   for (int item = threadIdx.x; item < (a.Hd / 8) * P; item += kThreads) {
     const int og = item / P, p = item - og * P;
@@ -367,11 +447,11 @@ __global__ void __launch_bounds__(kThreads, 1) coupler_stack_kernel(const Args a
   }
   __syncthreads();
   for (int k = 0; k < a.num_blocks; ++k) {
-    conv3x3_mma<MW, NT, KC>(hmap, tmap, false, biases + (2 * k) * a.Hd, a, band, ring, chunk);
+    conv3x3_mma<MW, NT, KC, BF>(hmap, tmap, false, biases + (2 * k) * a.Hd, a, band, ring, chunk);
     cluster.sync();
     copy_halos(tmap, a, band, cluster);
     __syncthreads();
-    conv3x3_mma<MW, NT, KC>(tmap, hmap, true, biases + (2 * k + 1) * a.Hd, a, band, ring, chunk);
+    conv3x3_mma<MW, NT, KC, BF>(tmap, hmap, true, biases + (2 * k + 1) * a.Hd, a, band, ring, chunk);
     // After this barrier no CTA of the cluster reads another's t again, and
     // h's halos are read only if another conv follows. So a CTA may leave
     // after the last one.
@@ -395,21 +475,23 @@ __global__ void __launch_bounds__(kThreads, 1) coupler_stack_kernel(const Args a
   }
 }
 
+// The launch plan is shared by both arithmetics, so a bf16 launch reserves
+// the TF32 ring's room and uses a quarter of each stage.
 int smem_bytes(int Hd, int S, int kc) { return 4 * (2 * Hd * S + kStages * kc * Hd * 2); }
 
-template <int MW, int NT, int KC>
+template <int MW, int NT, int KC, bool BF>
 cudaError_t prepare(int cluster, int smem) {
-  cudaError_t e = cudaFuncSetAttribute(coupler_stack_kernel<MW, NT, KC>,
+  cudaError_t e = cudaFuncSetAttribute(coupler_stack_kernel<MW, NT, KC, BF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && cluster > 8)
-    e = cudaFuncSetAttribute(coupler_stack_kernel<MW, NT, KC>,
+    e = cudaFuncSetAttribute(coupler_stack_kernel<MW, NT, KC, BF>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
 
-template <int MW, int NT, int KC>
+template <int MW, int NT, int KC, bool BF>
 cudaError_t launch(const Args& a, int B, int smem, cudaStream_t stream) {
-  cudaError_t e = prepare<MW, NT, KC>(a.cluster, smem);
+  cudaError_t e = prepare<MW, NT, KC, BF>(a.cluster, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(B * a.cluster), 1, 1);
@@ -423,12 +505,12 @@ cudaError_t launch(const Args& a, int B, int smem, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, coupler_stack_kernel<MW, NT, KC>, a);
+  return cudaLaunchKernelEx(&cfg, coupler_stack_kernel<MW, NT, KC, BF>, a);
 }
 
 template <int MW, int NT, int KC>
 cudaError_t max_clusters(int cluster, int smem, int* n) {
-  cudaError_t e = prepare<MW, NT, KC>(cluster, smem);
+  cudaError_t e = prepare<MW, NT, KC, false>(cluster, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(cluster * 64), 1, 1);
@@ -441,7 +523,7 @@ cudaError_t max_clusters(int cluster, int smem, int* n) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(n, coupler_stack_kernel<MW, NT, KC>, &cfg);
+  return cudaOccupancyMaxActiveClusters(n, coupler_stack_kernel<MW, NT, KC, false>, &cfg);
 }
 
 // The instance for a padded hidden width (32 or 64), n-tiles a warp and
@@ -465,8 +547,9 @@ int tiles_per_warp(int H, int W, int cluster) {
   return ((rows * W + 7) / 8 + kWarpsN - 1) / kWarpsN;
 }
 
+template <bool BF>
 cudaError_t launch_any(const Args& a, int B, int smem, cudaStream_t stream) {
-#define CMF_LAUNCH(MW, NT, KC) launch<MW, NT, KC>(a, B, smem, stream)
+#define CMF_LAUNCH(MW, NT, KC) launch<MW, NT, KC, BF>(a, B, smem, stream)
   CMF_DISPATCH(a.Hd, tiles_per_warp(a.H, a.W, a.cluster), a.kc, CMF_LAUNCH)
 #undef CMF_LAUNCH
 }
@@ -489,25 +572,39 @@ bool plan_ok(int C_in, int H, int W, int Hd, int cluster, int S, int kc) {
   return smem_bytes(Hd, S, kc) <= kSmemLimit;
 }
 
-}  // namespace
-
-// Plain C interface for ctypes. Pointers are device pointers of contiguous
-// fp32 tensors: x (B, C_in, H, W); frags and small packed by
-// ops/coupler_stack.py::pack_weights; out (B, C_out, H, W). Hd is the hidden
-// width padded to 32 or 64; cluster, S (map stride in
-// floats) and kc (input channels per weight chunk) are the launch plan. The
-// kernel runs on `stream`; the return value is the launch's error, then
-// cudaGetLastError() (0 = launched).
-extern "C" int cmf_coupler_stack_fwd(const void* x, const void* frags, const void* small, void* out,
-                                     int B, int C_in, int H, int W, int Hd, int num_blocks,
-                                     int C_out, int cluster, int S, int kc, void* stream) {
+template <bool BF>
+int forward(const void* x, const void* frags, const void* small, void* out, int B, int C_in, int H, int W,
+            int Hd, int num_blocks, int C_out, int cluster, int S, int kc, void* stream) {
   if (B < 1 || num_blocks < 0 || C_out < 1 || !plan_ok(C_in, H, W, Hd, cluster, S, kc))
     return (int)cudaErrorInvalidValue;
   Args a{(const float*)x, (const float*)frags, (const float*)small, (float*)out,
          C_in, H, W, Hd, num_blocks, C_out, cluster, S, kc};
-  const cudaError_t e = launch_any(a, B, smem_bytes(Hd, S, kc), (cudaStream_t)stream);
+  const cudaError_t e = launch_any<BF>(a, B, smem_bytes(Hd, S, kc), (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Pointers are device pointers of contiguous
+// tensors: x (B, C_in, H, W) fp32; frags and small packed by
+// ops/coupler_stack.py::pack_weights (frags fp32 hi/lo TF32 fragments, or
+// bf16 fragments for the bf16 entry; small fp32); out (B, C_out, H, W) fp32.
+// Hd is the hidden width padded to 32 or 64; cluster, S (map stride in
+// floats) and kc (input channels per weight chunk) are the launch plan, the
+// same for both arithmetics. The kernel runs on `stream`; the return value
+// is the launch's error, then cudaGetLastError() (0 = launched).
+extern "C" int cmf_coupler_stack_fwd(const void* x, const void* frags, const void* small, void* out,
+                                     int B, int C_in, int H, int W, int Hd, int num_blocks,
+                                     int C_out, int cluster, int S, int kc, void* stream) {
+  return forward<false>(x, frags, small, out, B, C_in, H, W, Hd, num_blocks, C_out, cluster, S, kc, stream);
+}
+
+// The bf16=True arithmetic, with the same arguments.
+extern "C" int cmf_coupler_stack_fwd_bf16(const void* x, const void* frags, const void* small, void* out,
+                                          int B, int C_in, int H, int W, int Hd, int num_blocks,
+                                          int C_out, int cluster, int S, int kc, void* stream) {
+  return forward<true>(x, frags, small, out, B, C_in, H, W, Hd, num_blocks, C_out, cluster, S, kc, stream);
 }
 
 // How many clusters of this plan the card can hold at once

@@ -3,7 +3,8 @@ torch).
 
 * Exact path (``log_jacobian_method="cholesky"``, and every ``train=False``
   elbo): the decoder's d Jacobian columns come from the dense augmented-batch
-  program (ops/decode_jac.py) where it covers the chain (flat chains), else
+  program (ops/decode_jac.py) where it covers the chain and has no conv
+  stages (flat chains, nonsquare.py:220), else
   from ``torch.func.jvp`` of the flat decode under ``torch.func.vmap`` over
   the d basis tangents (nonsquare.py:225-228). Inside the kernels' size gate
   (d ≤ 32, D ≤ 128) the fused Gram + Cholesky + log-det
@@ -242,7 +243,7 @@ class NonSquareHeadDensity(Density):
         return torch.log((jac * jac).sum(dim=1))
 
     def _dense_decode_program(self):
-        """The dense decode program of a flat chain, or None (cached)."""
+        """The dense decode program of the chain, or None (cached)."""
         if not self._program_checked:
             from ..ops.decode_jac import extract_dense_decode_program
 
@@ -263,9 +264,10 @@ class NonSquareHeadDensity(Density):
 
     def _exact_log_det(self, z):
         """(non_square.py:262-311) d basis-tangent pushforwards → Gram →
-        Cholesky log-det. Returns (log_det, recon_flat, gram)."""
+        Cholesky log-det. Returns (log_det, recon_flat, gram). A program
+        with conv stages is not taken here (nonsquare.py:211-220)."""
         program = self._dense_decode_program()
-        if program is not None:
+        if program is not None and not program.has_conv:
             recon_flat, jac_cols = program(z)
         else:
             recon_flat, jac_cols = self._generic_jacobian(z)
@@ -274,13 +276,15 @@ class NonSquareHeadDensity(Density):
 
     def _resolved_hutch_solver(self, d):
         """'auto' picks the exact-Gram solver where a dense decode program
-        covers a flat chain with small d, else the reference's iterative CG
-        (nonsquare.py:270-300), warning once that the CG settings are inert
-        when it picks the Gram. The conv chains of the image models take CG."""
+        without conv stages covers the chain and d is small, else the
+        reference's iterative CG (nonsquare.py:270-300), warning once that
+        the CG settings are inert when it picks the Gram. The conv chains of
+        the image models take CG."""
         if self.hutchinson_solver != "auto":
             return self.hutchinson_solver
+        program = self._dense_decode_program()
         resolved = "cg"
-        if d is not None and d <= _GRAM_SOLVER_MAX_D and self._dense_decode_program() is not None:
+        if d is not None and d <= _GRAM_SOLVER_MAX_D and program is not None and not program.has_conv:
             resolved = "gram"
         if (
             resolved == "gram"

@@ -15,6 +15,18 @@ Hutchinson solve's matvecs run without a graph but inside ``torch.func.jvp``
 / ``vjp``, which need the conv module's derivative rules, and ``torch.func``
 transforms turn inference mode off inside them.
 
+The compute-precision policy (``set_compute_dtype``, ``compute_dtype``;
+nets/core.py:21-40) is the JAX package's: with ``"bf16"`` or
+``"bfloat16"`` the coupler nets' matmuls (``_matmul``) take operands
+rounded to bf16 and sum their products in fp32, and their convolutions
+(``_conv2d``) run in bf16 and round their output to bf16 before it is cast
+back to fp32, the bias added after the cast; any other string means fp32.
+It applies to ``MLP``, ``AutoregressiveMLP``, the ResNet's convs and
+``GlowCNN``'s, and nothing else: ``Dense`` alone (the coupled spline's
+residual MLP) stays fp32, as the JAX package's plain ``@`` does. The policy
+is read at call time, so a CUDA graph captured under it keeps its
+arithmetic.
+
 Batch-norm (``BatchNorm2d``) follows the JAX package's per-call ``train``
 flag through one switch: inside ``batch_statistics(module)`` every
 batch-norm layer of ``module`` normalises by the batch's statistics and
@@ -31,6 +43,50 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.coupler_stack import coupler_kernel_available, fused_resnet_coupler
+
+# The coupler nets' compute dtype (nets/core.py:26); parameters stay fp32.
+_COMPUTE_DTYPE = [torch.float32]
+
+
+def set_compute_dtype(dtype):
+    """bf16 for ``"bf16"`` and ``"bfloat16"``, fp32 for every other value
+    (nets/core.py:29-30)."""
+    _COMPUTE_DTYPE[0] = torch.bfloat16 if str(dtype) in ("bf16", "bfloat16") else torch.float32
+
+
+def get_compute_dtype():
+    return _COMPUTE_DTYPE[0]
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    old = _COMPUTE_DTYPE[0]
+    set_compute_dtype(dtype)
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE[0] = old
+
+
+def _matmul(x, w):
+    """``x @ w``; under bf16 the product of the bf16-rounded operands with
+    fp32 sums and an fp32 result (``preferred_element_type=float32``,
+    nets/core.py:50-54): bf16 products are exact in fp32."""
+    cd = _COMPUTE_DTYPE[0]
+    if cd == torch.float32:
+        return x @ w
+    return x.to(cd).float() @ w.to(cd).float()
+
+
+def _conv2d(x, w, b=None):
+    """SAME conv of NCHW ``x`` by OIHW ``w``; under bf16 a bf16 conv whose
+    output is cast to fp32 before the bias is added (nets/core.py:87-107)."""
+    pad = w.shape[-1] // 2
+    cd = _COMPUTE_DTYPE[0]
+    if cd == torch.float32:
+        return F.conv2d(x, w, b, padding=pad)
+    out = F.conv2d(x.to(cd), w.to(cd), padding=pad).float()
+    return out if b is None else out + b[None, :, None, None]
 
 
 def get_activation(name):
@@ -99,7 +155,7 @@ class MLP(nn.Module):
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = _matmul(x, layer.w) + layer.b
             if i < len(self.layers) - 1:
                 x = self.activation(x)
         return x
@@ -149,7 +205,7 @@ class AutoregressiveMLP(nn.Module):
     def forward(self, x):
         out = x
         for i, layer in enumerate(self.layers):
-            out = out @ (layer.w * self.masks[i]) + layer.b
+            out = _matmul(out, layer.w * self.masks[i]) + layer.b
             if i < len(self.layers) - 1:
                 out = self.activation(out)
         return out.reshape(x.shape[0], self.heads, self.n_in)
@@ -160,7 +216,7 @@ def _uniform(shape, bound, generator):
 
 
 class Conv(nn.Module):
-    """``F.conv2d`` with SAME padding, weights as ``conv_init`` of the JAX
+    """``_conv2d`` with SAME padding, weights as ``conv_init`` of the JAX
     package draws them: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for ``w``
     (O, I, k, k) and, where there is one, ``b`` (nets/core.py:75-84)."""
 
@@ -171,7 +227,7 @@ class Conv(nn.Module):
         self.b = nn.Parameter(_uniform((c_out,), bound, generator)) if bias else None
 
     def forward(self, x):
-        return F.conv2d(x, self.w, self.b, padding=self.w.shape[-1] // 2)
+        return _conv2d(x, self.w, self.b)
 
 
 class BatchNorm2d(nn.Module):
@@ -323,7 +379,7 @@ class ResNet(nn.Module):
             and x.dim() == 4
             and coupler_kernel_available(x.shape[1], self.c_hidden, *x.shape[2:])
         ):
-            return fused_resnet_coupler(x, self.kernel_params())
+            return fused_resnet_coupler(x, self.kernel_params(), bf16=_COMPUTE_DTYPE[0] == torch.bfloat16)
         out = self.conv_in(x)
         for block in self.blocks:
             out = block(out)

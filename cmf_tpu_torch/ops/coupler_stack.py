@@ -5,27 +5,34 @@ torch).
 batchnorm-free coupler net — bias-free 3×3 ``conv_in``; K × (relu → 3×3
 conv+b → relu → 3×3 conv+b, plus the skip); relu → 1×1 conv+b →
 ``head_w·tanh(·) + head_b`` — from ``params``, the JAX ``ResNet`` params tree
-(weights OIHW), on x (B, C_in, H, W) fp32. It is the default arithmetic of the
-TPU kernel (``bf16=False``): fp32 in, fp32 out, fp32 sums.
+(weights OIHW), on x (B, C_in, H, W) fp32, in either arithmetic of the TPU
+kernel: ``bf16=False``, fp32 in, fp32 out, fp32 sums; or ``bf16=True``
+(coupler_stack.py:83-147), where every 3×3 conv, ``conv_in`` included, takes
+its shifted map and its weight rounded to bf16 and sums the products in
+fp32, while the residual stream, the biases, the 1×1 ``conv_out`` and the
+head stay fp32.
 
 The kernel is CUDA C++ for Hopper in ``csrc/coupler_stack.cu`` (the source
 says which TPU kernel it replaces, what bounds it and what its design does
 about it): one thread-block cluster per image, the feature maps in shared
-memory, every hidden×hidden 3×3 conv on the tensor cores in 3×TF32. This
-module holds what surrounds it in Python, where the CPU tests reach it: the
-launch plan (``plan_launch``, and the shape gate
-``coupler_kernel_available``), the TF32 split of the weights (``tf32_round``,
-``split_tf32``) and their packing in mma fragment order (``pack_weights``).
+memory, every hidden×hidden 3×3 conv on the tensor cores, in 3×TF32 or,
+for ``bf16=True``, in one bf16 pass. This module holds what surrounds it in
+Python, where the CPU tests reach it: the launch plan (``plan_launch``, and
+the shape gate ``coupler_kernel_available``), the TF32 split of the weights
+(``tf32_round``, ``split_tf32``) and their packing in mma fragment order
+(``pack_weights``: ``mma_fragments`` or ``bf16_fragments``).
 
 Beside it is its plain PyTorch version, ``coupler_stack_plain``, which repeats
 the TPU kernel's arithmetic — each 3×3 conv as a sum of 9 shifted,
-zero-padded (C_out, C_in) matmuls, in fp32 — and not ``F.conv2d``, so the
-oracle shares nothing with cuDNN.
+zero-padded (C_out, C_in) matmuls, with fp32 sums and, for ``bf16=True``,
+bf16-rounded operands — and not ``F.conv2d``, so the oracle shares nothing
+with cuDNN.
 
 The wrapper dispatches on the tensor's device only: on a CUDA tensor it
 launches the kernel or raises; on a CPU tensor it takes the plain version.
 ``LAUNCHES`` counts kernel launches; ``CALLS`` counts calls on any device, so
-a CPU test can see which route a caller took.
+a CPU test can see which route a caller took; both count both arithmetics,
+and ``BF16_LAUNCHES`` and ``BF16_CALLS`` count the bf16 ones apart.
 """
 
 import ctypes
@@ -38,12 +45,16 @@ from torch.autograd import forward_ad
 
 LAUNCHES = 0
 CALLS = 0
+BF16_LAUNCHES = 0
+BF16_CALLS = 0
 
 
 def reset_launch_counts():
-    global LAUNCHES, CALLS
+    global LAUNCHES, CALLS, BF16_LAUNCHES, BF16_CALLS
     LAUNCHES = 0
     CALLS = 0
+    BF16_LAUNCHES = 0
+    BF16_CALLS = 0
 
 
 def flops(batch, c_in, hidden, c_out, num_blocks, h, w):
@@ -57,15 +68,24 @@ def flops(batch, c_in, hidden, c_out, num_blocks, h, w):
 
 def tensor_core_flops(batch, hidden, num_blocks, h, w):
     """The part of ``flops`` that the kernel runs on the tensor cores: the
-    2K hidden×hidden 3×3 convs. 3×TF32 issues each of them three times."""
+    2K hidden×hidden 3×3 convs. 3×TF32 issues each of them three times,
+    bf16 once."""
     return batch * 2 * num_blocks * 2 * 9 * hidden * hidden * h * w
 
 
 # ------------------------------------------------------------ plain version
-def _conv3x3_taps(h, w, b=None):
+def bf16_round(x):
+    """fp32 → the nearest bf16 value, ties to even, as fp32 (``astype``)."""
+    return x.to(torch.bfloat16).float()
+
+
+def _conv3x3_taps(h, w, b=None, bf16=False):
     """(B, I, H, W) → (B, O, H, W): Σ over the 9 taps of w[:, :, ky, kx] times
-    the map shifted by (ky-1, kx-1), zero outside the image."""
+    the map shifted by (ky-1, kx-1), zero outside the image; with ``bf16``
+    both operands rounded to bf16 (exact products), fp32 sums."""
     height, width = h.shape[-2:]
+    if bf16:
+        h, w = bf16_round(h), bf16_round(w)
     padded = F.pad(h, (1, 1, 1, 1))
     acc = None
     for ky in range(3):
@@ -78,11 +98,11 @@ def _conv3x3_taps(h, w, b=None):
     return acc
 
 
-def coupler_stack_plain(x, params):
-    h = _conv3x3_taps(x, params["conv_in"]["w"])
+def coupler_stack_plain(x, params, bf16=False):
+    h = _conv3x3_taps(x, params["conv_in"]["w"], bf16=bf16)
     for bp in params["blocks"]:
-        t = _conv3x3_taps(torch.relu(h), bp["conv1"]["w"], bp["conv1"]["b"])
-        t = _conv3x3_taps(torch.relu(t), bp["conv2"]["w"], bp["conv2"]["b"])
+        t = _conv3x3_taps(torch.relu(h), bp["conv1"]["w"], bp["conv1"]["b"], bf16)
+        t = _conv3x3_taps(torch.relu(t), bp["conv2"]["w"], bp["conv2"]["b"], bf16)
         h = h + t
     y = torch.einsum("oi,bihw->bohw", params["conv_out"]["w"][:, :, 0, 0], torch.relu(h))
     y = y + params["conv_out"]["b"][None, :, None, None]
@@ -226,8 +246,9 @@ def _lib():
     # cuts a device pointer.
     if lib.cmf_coupler_stack_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cmf_coupler_stack_fwd.argtypes = [p, p, p, p] + [i] * 10 + [p]
-        lib.cmf_coupler_stack_fwd.restype = ctypes.c_int
+        for fn in (lib.cmf_coupler_stack_fwd, lib.cmf_coupler_stack_fwd_bf16):
+            fn.argtypes = [p, p, p, p] + [i] * 10 + [p]
+            fn.restype = ctypes.c_int
         lib.cmf_coupler_stack_max_clusters.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
         lib.cmf_coupler_stack_max_clusters.restype = ctypes.c_int
     return lib
@@ -269,15 +290,34 @@ def mma_fragments(w, kc):
     return torch.stack([hi, lo], dim=5).reshape(-1)
 
 
-def pack_weights(params, c_in, hidden, c_out, device, kc=32):
+def bf16_fragments(w, kc):
+    """Hidden×hidden 3×3 weights (n, O, I, 3, 3) → the bf16 variant's weight
+    stream: per conv, per tap, per chunk of kc input channels, per k-step of
+    16, per m-tile of 16 outputs, the 32 lanes' A fragments of
+    ``mma.m16n8k16.bf16``, 8 bf16 a lane. Lane 4·gid + tig holds, in order,
+    W[o][k], W[o][k+4], W[o+8][k], W[o+8][k+4], W[o][k+8], W[o][k+12],
+    W[o+8][k+8], W[o+8][k+12] with o = 16·m + gid, k = tig: the mma's k
+    index 8r + 2·tig + j stands for input channel 8r + tig + 4j, so a lane's
+    B fragment loads the channels the TF32 kernel's lane loads, free of
+    bank conflicts. Rounded to bf16 to nearest, ties to even."""
+    n, o, i = w.shape[:3]
+    t = w.permute(0, 3, 4, 2, 1)  # (n, ky, kx, I, O)
+    # I → (chunk, k-step, r, j, tig); O → (m-tile, o+8, gid)
+    t = t.reshape(n, 9, i // kc, kc // 16, 2, 2, 4, o // 16, 2, 8)
+    t = t.permute(0, 1, 2, 3, 7, 9, 6, 4, 8, 5)  # (n, tap, chunk, k-step, m, gid, tig, r, o+8, j)
+    return t.contiguous().to(torch.bfloat16).reshape(-1)
+
+
+def pack_weights(params, c_in, hidden, c_out, device, kc=32, bf16=False):
     """The kernel's two weight buffers, checking every shape on the way.
 
     ``frags``: the 2K hidden×hidden convs (conv1, conv2 of each block in
-    order) as ``mma_fragments``, hidden padded to 32 or 64 with zeros.
-    ``small``: conv_in as [C_in][tap][hidden], the 2K biases [2K][hidden],
-    the 1×1 conv as [hidden][C_out], its bias, head_w and head_b, fp32 as
-    they are (``csrc/coupler_stack.cu``). ``kc`` is the plan's chunk depth,
-    32 or 16."""
+    order) as ``mma_fragments``, or with ``bf16`` as ``bf16_fragments``,
+    hidden padded to 32 or 64 with zeros. ``small``: conv_in as
+    [C_in][tap][hidden] (rounded to bf16 with ``bf16``), the 2K biases
+    [2K][hidden], the 1×1 conv as [hidden][C_out], its bias, head_w and
+    head_b, fp32 as they are (``csrc/coupler_stack.cu``). ``kc`` is the
+    plan's chunk depth, 32 or 16."""
     hp = padded_hidden(hidden)
     pad = hp - hidden
 
@@ -301,11 +341,13 @@ def pack_weights(params, c_in, hidden, c_out, device, kc=32):
 
     if convs:
         w = F.pad(torch.stack(convs), (0, 0, 0, 0, 0, pad, 0, pad))
-        frags = mma_fragments(w, kc)
+        frags = bf16_fragments(w, kc) if bf16 else mma_fragments(w, kc)
         bias = F.pad(torch.stack(biases), (0, pad)).reshape(-1)
     else:
-        frags = torch.zeros(4, dtype=torch.float32, device=device)
+        frags = torch.zeros(8 if bf16 else 4, dtype=torch.bfloat16 if bf16 else torch.float32, device=device)
         bias = torch.zeros(0, dtype=torch.float32, device=device)
+    if bf16:
+        w_in = bf16_round(w_in)
     small = torch.cat([
         F.pad(w_in, (0, 0, 0, 0, 0, 0, 0, pad)).permute(1, 2, 3, 0).reshape(-1),
         bias,
@@ -332,13 +374,13 @@ def _param_tensors(params):
             params["head_w"], params["head_b"]]
 
 
-def packed_weights(params, c_in, hidden, c_out, device, kc):
+def packed_weights(params, c_in, hidden, c_out, device, kc, bf16=False):
     """``pack_weights``, from the cache where the same tensors, unchanged,
-    were packed before."""
+    were packed before in the same arithmetic."""
     tensors = _param_tensors(params)
     if any(t.is_inference() for t in tensors):  # no version counter to check
-        return pack_weights(params, c_in, hidden, c_out, device, kc)
-    key = (str(device), kc, c_in, hidden, c_out, tuple(id(t) for t in tensors))
+        return pack_weights(params, c_in, hidden, c_out, device, kc, bf16)
+    key = (str(device), kc, bool(bf16), c_in, hidden, c_out, tuple(id(t) for t in tensors))
     versions = tuple(t._version for t in tensors)
     hit = _PACKED.get(key)
     if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], tensors)):
@@ -347,14 +389,15 @@ def packed_weights(params, c_in, hidden, c_out, device, kc):
         del _PACKED[k]
     if len(_PACKED) >= _PACKED_MAX:
         del _PACKED[next(iter(_PACKED))]
-    packed = pack_weights(params, c_in, hidden, c_out, device, kc)
+    packed = pack_weights(params, c_in, hidden, c_out, device, kc, bf16)
     _PACKED[key] = ([weakref.ref(t) for t in tensors], versions, packed)
     return packed
 
 
-def coupler_stack_cuda(x, params):
-    """The kernel: x (B, C_in, H, W) CUDA fp32 → (B, C_out, H, W)."""
-    global LAUNCHES
+def coupler_stack_cuda(x, params, bf16=False):
+    """The kernel: x (B, C_in, H, W) CUDA fp32 → (B, C_out, H, W), in the
+    bf16 variant's arithmetic with ``bf16``."""
+    global LAUNCHES, BF16_LAUNCHES
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, C_in, H, W), got {tuple(x.shape)}")
     if not x.is_cuda:
@@ -369,15 +412,16 @@ def coupler_stack_cuda(x, params):
         raise ValueError(f"coupler_stack kernel takes B ≥ 1; got B={batch}")
     plan = plan_launch(batch, c_in, hidden, h, w)
     x = x.contiguous()
-    frags, small = packed_weights(params, c_in, hidden, c_out, x.device, plan.kc)
+    frags, small = packed_weights(params, c_in, hidden, c_out, x.device, plan.kc, bf16)
     out = torch.empty((batch, c_out, h, w), dtype=torch.float32, device=x.device)
     # A packed buffer that leaves the cache while the kernel is queued is
     # safe: the caching allocator hands its memory only to later work on the
     # same stream, which runs after the kernel.
     lib = _lib()
+    entry = lib.cmf_coupler_stack_fwd_bf16 if bf16 else lib.cmf_coupler_stack_fwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cmf_coupler_stack_fwd(
+        rc = entry(
             x.data_ptr(), frags.data_ptr(), small.data_ptr(), out.data_ptr(),
             batch, c_in, h, w, plan.hidden, num_blocks, c_out, plan.cluster, plan.stride,
             plan.kc, stream,
@@ -385,24 +429,28 @@ def coupler_stack_cuda(x, params):
     if rc != 0:
         raise RuntimeError(f"coupler_stack kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
+    BF16_LAUNCHES += bool(bf16)
     return out
 
 
-def fused_resnet_coupler(x, params):
+def fused_resnet_coupler(x, params, bf16=False):
     """Coupler output (B, C_out, H, W), the same function as ``ResNet.apply``
-    of the batchnorm-free net. Forward only: it has no derivative rule, so
+    of the batchnorm-free net, in the TPU kernel's bf16 arithmetic with
+    ``bf16`` (``ResNet.forward`` passes the compute-dtype policy). Forward
+    only: it has no derivative rule, so
     callers route only inference through it (``nets/core.py``), and only
     shapes ``coupler_kernel_available`` admits. A tensor that carries a
     forward-mode tangent or sits inside a ``torch.func`` transform (a JVP,
     a vmap) raises on every device, rather than losing its tangent in the
     kernel."""
-    global CALLS
+    global CALLS, BF16_CALLS
     if torch._C._functorch.is_functorch_wrapped_tensor(x) or forward_ad.unpack_dual(x).tangent is not None:
         raise RuntimeError(
             "fused_resnet_coupler has no forward-mode or batching rule: run JVPs and vmaps of a "
             "ResNet coupler outside torch.inference_mode(), where it takes the conv modules"
         )
     CALLS += 1
+    BF16_CALLS += bool(bf16)
     if x.is_cuda:
-        return coupler_stack_cuda(x, params)
-    return coupler_stack_plain(x, params)
+        return coupler_stack_cuda(x, params, bf16)
+    return coupler_stack_plain(x, params, bf16)

@@ -46,6 +46,7 @@ from ..eval.fid import get_fid_function
 from ..eval.inception import get_feature_fn
 from ..eval.metrics import metrics
 from ..models import get_density
+from ..nets import set_compute_dtype
 from .objectives import get_objective
 from .optim import make_optimizer
 from .trainer import Trainer
@@ -86,8 +87,6 @@ def check_schema(schema):
 def check_supported(config, write_to_disk=True):
     """Raise for every config entry that asks for what the port lacks."""
     check_schema(get_schema(config))
-    if config.get("compute_dtype", "float32") != "float32":
-        raise _later(f"compute_dtype `{config['compute_dtype']}' (ROADMAP module 7)")
     if write_to_disk and not config.get("nosave", False):
         check_checkpoint_backend(config.get("checkpoint_backend", "pickle"))
         viz.check_visualizer(config)
@@ -207,6 +206,9 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
     check_supported(config, write_to_disk=write_to_disk)
     device = resolve_device(device)
     pin_fp32()
+    # The coupler nets' compute dtype (experiment.py:150-153); the Gram,
+    # Cholesky, CG, batch-norm and optimizer maths stay fp32.
+    set_compute_dtype(config.get("compute_dtype", "float32"))
     seed = config["seed"]
     train_loader, valid_loader, test_loader = get_loaders(
         config["dataset"],

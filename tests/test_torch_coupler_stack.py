@@ -25,7 +25,7 @@ from cmf_tpu_torch.config.schemas import get_schema
 from cmf_tpu_torch.data.image import DATASET_SHAPES
 from cmf_tpu_torch.interop import variables_from_jax
 from cmf_tpu_torch.models import get_density
-from cmf_tpu_torch.nets import ResNet
+from cmf_tpu_torch.nets import ResNet, compute_dtype
 from cmf_tpu_torch.ops import coupler_stack as cs
 
 from _torch_parity import t, to_numpy
@@ -54,14 +54,23 @@ def _pair(c_in, c_out, hw, blocks, batch, seed=0):
     return net, variables, port, x
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("geometry", GEOMETRIES, ids=IDS)
-def test_plain_matches_jax_kernel_in_interpret_mode(geometry):
+def test_plain_matches_jax_kernel_in_interpret_mode(geometry, bf16):
+    """Both arithmetics of the TPU kernel: with ``bf16`` both packages round
+    the same operands (the shifted map and the weights of every 3×3 conv)
+    and sum exact products in fp32, so they stay within the fp32 tolerance,
+    more than ten times closer than bf16 is to fp32 here."""
     _, variables, port, x = _pair(*geometry)
     want = jax_fused_resnet_coupler(jnp.asarray(x), variables["params"], num_blocks=geometry[3],
-                                    interpret=True)
+                                    interpret=True, bf16=bf16)
     with torch.no_grad():
-        got = cs.coupler_stack_plain(t(x), port.kernel_params())
+        got = cs.coupler_stack_plain(t(x), port.kernel_params(), bf16=bf16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    if bf16:
+        with torch.no_grad():
+            fp32 = cs.coupler_stack_plain(t(x), port.kernel_params())
+        assert np.abs(fp32.numpy() - np.asarray(want)).max() > 10 * TOL
 
 
 @pytest.mark.parametrize("geometry", GEOMETRIES, ids=IDS)
@@ -87,6 +96,32 @@ def test_inference_mode_routes_through_the_fused_coupler():
     # On a CPU tensor the wrapper takes the plain version: routed, not launched.
     assert (cs.CALLS, cs.LAUNCHES) == (1, 0)
     np.testing.assert_allclose(fused.numpy(), conv.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_inference_mode_passes_the_compute_dtype_policy():
+    """Under the bf16 policy the sampling route takes the kernel's bf16
+    arithmetic; the conv modules under the same policy (cuDNN's bf16 convs
+    where there is a card) round each conv's output to bf16 besides, as
+    ``ResNet.apply`` does, so the two agree only to bf16's precision."""
+    _, _, port, x = _pair(*GEOMETRIES[1], seed=6)
+    x = t(x)
+    cs.reset_launch_counts()
+    with compute_dtype("bfloat16"):
+        with torch.inference_mode():
+            fused = port(x)
+        with torch.no_grad():
+            conv = port(x)
+    assert (cs.CALLS, cs.BF16_CALLS, cs.LAUNCHES, cs.BF16_LAUNCHES) == (1, 1, 0, 0)
+    with torch.no_grad():
+        plain = cs.coupler_stack_plain(x, port.kernel_params(), bf16=True)
+        fp32 = port(x)
+    np.testing.assert_array_equal(fused.numpy(), plain.numpy())
+    scale = float(fp32.abs().max())
+    assert float((fused - fp32).abs().max()) > 10 * TOL * scale
+    assert float((conv - fused).abs().max()) < 2e-2 * scale
+    with torch.inference_mode():
+        port(x)
+    assert (cs.CALLS, cs.BF16_CALLS) == (2, 1)
 
 
 def test_func_jvp_never_reaches_the_forward_only_kernel():
@@ -164,6 +199,90 @@ def test_pack_weights_layout():
     assert small[start + 7 * 8 + 3] == w_out[3, 7, 0, 0]
 
 
+def _unpack_bf16_fragments(frags, n, hidden_p, kc):
+    """W (n, O, I, 9) read out of the bf16 variant's ``frags`` lane by lane,
+    as its A-fragment loads read them: per conv, tap, chunk, k-step of 16,
+    m-tile, lane 4·gid + tig holds registers q = 2r + q8 of two bf16 each,
+    j = 0 in the low half: W[o][i] with o = 16·m + gid + 8·q8 and
+    i = 16·ks + 8r + tig + 4j."""
+    mt = hidden_p // 16
+    shape = (n, 9, hidden_p // kc, kc // 16, mt, 32, 2, 2, 2)
+    c, tap, cb, ks, m, lane, r, q8, j = np.indices(shape).reshape(len(shape), -1)
+    gid, tig = lane >> 2, lane & 3
+    o = 16 * m + gid + 8 * q8
+    i = cb * kc + ks * 16 + 8 * r + tig + 4 * j
+    out = np.zeros((n, hidden_p, hidden_p, 9), np.float32)
+    out[c, o, i, tap] = frags.reshape(-1)
+    return out
+
+
+@pytest.mark.parametrize("kc", [32, 16])
+def test_pack_weights_bf16_layout(kc):
+    """The bf16 variant's ``frags``: the 2K hidden×hidden convs rounded to
+    bf16, to nearest and ties to even, in m16n8k16 fragment order, hidden
+    padded to 32 or 64; ``small``: conv_in rounded the same way, the rest
+    fp32 as in the TF32 packing."""
+    c_in, hidden, c_out, blocks = 4, 40, 8, 2  # hidden 40 pads to 64: two m-tiles a warp
+    net = ResNet(c_in, [hidden] * blocks, c_out, generator=torch.Generator().manual_seed(8))
+    hp, n = 64, 2 * blocks
+    with torch.no_grad():
+        params = net.kernel_params()
+        frags, small = cs.pack_weights(params, c_in, hidden, c_out, torch.device("cpu"), kc, bf16=True)
+        _, small32 = cs.pack_weights(params, c_in, hidden, c_out, torch.device("cpu"), kc)
+    assert frags.dtype == torch.bfloat16 and frags.numel() == n * 9 * hp * hp
+    w_got = _unpack_bf16_fragments(frags.float().numpy(), n, hp, kc)
+    w = torch.stack([params["blocks"][k][c]["w"].detach() for k in range(blocks) for c in ("conv1", "conv2")])
+    w = w.reshape(n, hidden, hidden, 9)
+    np.testing.assert_array_equal(w_got[:, :hidden, :hidden], cs.bf16_round(w).numpy())
+    assert not w_got[:, hidden:].any() and not w_got[:, :, hidden:].any()
+    n_in = c_in * 9 * hp
+    w_in = small32[:n_in]
+    np.testing.assert_array_equal(small[:n_in].numpy(), cs.bf16_round(w_in).numpy())
+    assert not torch.equal(small[:n_in], w_in)
+    np.testing.assert_array_equal(small[n_in:].numpy(), small32[n_in:].numpy())
+    # bf16 rounds ties to even: 1 + 2^-8 lies halfway between 1 and 1 + 2^-7.
+    assert float(cs.bf16_round(torch.tensor([1 + 2.0**-8]))) == 1.0
+    assert float(cs.bf16_round(torch.tensor([1 + 3 * 2.0**-8]))) == 1 + 2.0**-6
+
+
+def _emulate_bf16_kernel(x, params, c_in, hidden, c_out, kc=32):
+    """The bf16 variant's arithmetic on the CPU, from its packed buffers:
+    the input and conv_in's weights rounded to bf16, each hidden×hidden conv
+    on bf16-rounded relu maps and fragment weights, fp32 sums and residual;
+    the 1×1 conv and the head in fp32."""
+    hp = cs.padded_hidden(hidden)
+    n = 2 * len(params["blocks"])
+    frags, small = cs.pack_weights(params, c_in, hidden, c_out, torch.device("cpu"), kc, bf16=True)
+    w = torch.from_numpy(_unpack_bf16_fragments(frags.float().numpy(), n, hp, kc))
+    w = w.reshape(n, hp, hp, 3, 3)
+    w_in = small[: c_in * 9 * hp].reshape(c_in, 9, hp).permute(2, 0, 1).reshape(hp, c_in, 3, 3)
+    rest = small[c_in * 9 * hp :]
+    bias, rest = rest[: n * hp].reshape(n, hp), rest[n * hp :]
+    w_out, rest = rest[: hp * c_out].reshape(hp, c_out), rest[hp * c_out :]
+    b_out, head_w, head_b = rest.reshape(3, c_out)
+    h = cs._conv3x3_taps(cs.bf16_round(x), w_in)
+    for k in range(n // 2):
+        t_ = cs._conv3x3_taps(cs.bf16_round(torch.relu(h)), w[2 * k], bias[2 * k])
+        h = h + cs._conv3x3_taps(cs.bf16_round(torch.relu(t_)), w[2 * k + 1], bias[2 * k + 1])
+    y = torch.einsum("io,bihw->bohw", w_out, torch.relu(h)) + b_out[None, :, None, None]
+    return head_w[None, :, None, None] * torch.tanh(y) + head_b[None, :, None, None]
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=IDS)
+def test_bf16_emulation_matches_plain(geometry):
+    """The bf16 variant's packed buffers, read as the kernel reads them,
+    give the plain bf16 version within the fp32 tolerance."""
+    c_in, c_out, hw, blocks, batch = geometry
+    gen = torch.Generator().manual_seed(9)
+    net = ResNet(c_in, [16] * blocks, c_out, generator=gen)
+    with torch.no_grad():
+        x = torch.randn((batch, c_in, hw, hw), generator=gen)
+        params = net.kernel_params()
+        ref = cs.coupler_stack_plain(x, params, bf16=True)
+        got = _emulate_bf16_kernel(x, params, c_in, 16, c_out)
+    assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
 def test_pack_weights_pads_the_hidden_width():
     """A hidden width below 32 (or between 32 and 64) gets zero weights and
     biases for the padded channels."""
@@ -210,6 +329,23 @@ def test_packed_weights_are_cached_until_a_tensor_changes():
     # The freed module's entry went with the next miss; the live one stays.
     assert all(r() is not None for refs, _, _ in cs._PACKED.values() for r in refs)
     assert pack(other) is pack(other)
+
+
+def test_packed_weights_cache_the_bf16_packing_apart():
+    """The bf16 packing has its own cache entry beside the TF32 one: each
+    arithmetic gets its own buffers, each reused while the tensors stay."""
+    dev = torch.device("cpu")
+    net = ResNet(2, [16] * 2, 4, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        params = net.kernel_params()
+        tf32 = cs.packed_weights(params, 2, 16, 4, dev, 32)
+        bf16 = cs.packed_weights(params, 2, 16, 4, dev, 32, bf16=True)
+        assert bf16 is not tf32 and bf16[0].dtype == torch.bfloat16 and tf32[0].dtype == torch.float32
+        assert cs.packed_weights(params, 2, 16, 4, dev, 32, bf16=True) is bf16
+        assert cs.packed_weights(params, 2, 16, 4, dev, 32) is tf32
+        net.conv_in.w.mul_(2.0)
+        again = cs.packed_weights(params, 2, 16, 4, dev, 32, bf16=True)
+    assert again is not bf16 and torch.equal(again[0], bf16[0]) and not torch.equal(again[1], bf16[1])
 
 
 # cvt.rna.tf32.f32 on fp32 bit patterns: round to 10 mantissa bits, nearest,

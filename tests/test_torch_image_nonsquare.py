@@ -106,8 +106,9 @@ def test_eval_elbo_through_the_generic_jacobian_matches_jax(case):
     td = case["td"]
     with torch.no_grad():
         got = td.elbo(t(case["x"]), dequantization_noise=t(case["noise"]))["elbo"].numpy()
-    # Conv couplings: no dense decode program, so the vmap-of-JVPs Jacobian.
-    assert _head(td)._dense_decode_program() is None
+    # Conv couplings: the dense decode program has conv stages, so the
+    # exact path takes the vmap-of-JVPs Jacobian (nonsquare.py:220).
+    assert _head(td)._dense_decode_program().has_conv
     want = case["eval_elbo"]
     np.testing.assert_allclose(got, want, rtol=ELBO_TOL, atol=ELBO_TOL * np.abs(want).max())
 

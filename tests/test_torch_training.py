@@ -152,12 +152,12 @@ _PORTED = [
     (lambda: _flagship(log_jacobian_method="hutch_with_cg"), "log_jacobian_method-hutch_with_cg"),
     (lambda: _published("non-square", "mnist", resnet_batchnorm=True), "non-square-mnist-resnet_batchnorm-True"),
     (lambda: _flagship(batch_norm=True), "batch_norm-True"),
+    (lambda: _flagship(compute_dtype="bfloat16"), "compute_dtype-bfloat16"),
 ]
 # (config, id, what the refusal must name): one case per layer type that
 # waits, each from a published config that has it.
 _UNPORTED = [
     (lambda: _flagship(checkpoint_backend="orbax"), "checkpoint_backend-orbax", "JAX package's backend"),
-    (lambda: _flagship(compute_dtype="bfloat16"), "compute_dtype-bfloat16", "compute_dtype"),
 ]
 
 
@@ -165,7 +165,7 @@ _UNPORTED = [
 def test_unported_config_raises(make, match):
     """The flagship's published defaults pass (a run dir, early stopping,
     FID), and so do mnist's. Still refused, naming what waits: the orbax
-    checkpoint backend and bfloat16 compute."""
+    checkpoint backend."""
     config = _flagship()
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)
@@ -193,9 +193,10 @@ def test_ported_config_passes(make):
     zoo's BNAF and planar flows and the coupled spline, the tabular
     batch-norm models under the passthrough wrapper (realnvp with and
     without ``--baseline``, ``maf --baseline``, ``sos --baseline``),
-    the flagship's Hutchinson estimate, and batch-norm in a non-square
+    the flagship's Hutchinson estimate, batch-norm in a non-square
     model (the flagship's ``batch_norm=True`` and mnist's batch-norm
-    ResNet couplers), with their published settings."""
+    ResNet couplers), and bfloat16 compute, with their published
+    settings."""
     check_supported(make())
 
 

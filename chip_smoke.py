@@ -311,6 +311,20 @@ conv stages:
                   route, and the
                   gram-route loss and backward captured in a CUDA graph
                   with their draws passed in, against eager.
+28. mesh       -- the parallel slice on the one card: the flagship (one
+                  epoch of 10 steps) through ``torchrun --nproc_per_node 1
+                  chip_smoke.py --mesh-rank`` (the CLI with ``--mesh
+                  data=1`` over NCCL, captured) against the un-meshed run of
+                  the same seed (1e-6 relative), each captured step's ms and
+                  the NCCL kernels inside one trace of replays; the
+                  flagship's head under a (1 x 1) column partition, every
+                  step through kernel 4 (``fused_gram_logdet_sharded``, its
+                  launches the kernels line's count); kernel 4 alone
+                  against ``fused_gram_logdet`` at the main shape, its ms,
+                  device ms and the collectives'; two ranks on the card over
+                  gloo (``chip_smoke.py --gloo-rank``): each collective the
+                  step and kernel 4 need on CUDA tensors, and a data=2 step
+                  against one rank's where gloo takes them.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -4354,6 +4368,390 @@ def phase_conv_gram(smi):
     print(f"[conv-gram] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
 
 
+# ------------------------------------------------------------------ mesh
+# The flagship at one epoch of 10 steps, the likelihood on from step 1.
+MESH_ARGV = TRAIN_ARGV + ["--config", "max_epochs=1"]
+MESH_TIMEOUT_S = 240
+# World 1 against the un-meshed run: the same kernels on the same inputs;
+# the all-reduces of one rank add nothing.
+MESH_LOSS_RTOL = 1e-6
+
+
+def nccl_events(events):
+    """{kind: (count, µs)} of a trace's NCCL kernels, by the collective their
+    name holds (NCCL's one-rank kernel, ``oneRankReduce``, names none)."""
+    out = {}
+    for start, end, name in events:
+        low = name.lower()
+        if "onerank" in low:
+            key = "oneRankReduce"  # one rank's AVG: the mean's scaling
+        elif "nccl" in low:
+            key = next((c for c in ("AllReduce", "AllGather", "ReduceScatter", "Broadcast") if c in name), name[:60])
+        else:
+            continue
+        count, total = out.get(key, (0, 0.0))
+        out[key] = (count + 1, total + end - start)
+    return out
+
+
+def mesh_rank_main(out_path):
+    """One rank launched by ``torchrun --nproc_per_node 1``: the flagship
+    through the CLI with ``--mesh data=1`` (NCCL), its history and one trace
+    of its replays, into ``out_path`` as JSON. The process group is made
+    before the CLI, which then leaves it up for the replays traced after
+    it. The rank times nothing: other processes share the card while it
+    runs, so ``phase_mesh`` times the meshed step once it is alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmf_tpu_torch.device import pin_fp32
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.parallel import initialize_multihost
+
+    pin_fp32()
+    assert initialize_multihost(), "the rank found no launcher environment"
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        gl.reset_launch_counts()
+        (setup,) = cli_main(MESH_ARGV + ["--mesh", "data=1"])
+        torch.cuda.synchronize()
+        trainer = setup["trainer"]
+        launches = gl.launch_counts()
+        flags = trainer.objective.for_epoch(trainer.epoch)
+        x = next(iter(trainer.train_loader))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                trainer.step(x, flags)
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        result = {
+            "backend": torch.distributed.get_backend(),
+            "mesh": repr(trainer.mesh),
+            "history": [h[1] for h in trainer.history],
+            "captured": bool(trainer.captured),
+            "graphs": len(captured_steps(trainer)),
+            "launches": launches,
+            "ops_per_replay": len(events) / 5,
+            "nccl_per_replay": {k: (c / 5, us / 5) for k, (c, us) in nccl_events(events).items()},
+        }
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+GLOO_PROBES = ("all_reduce", "all_reduce_min", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def gloo_rank_main(rank, init_file, out_path):
+    """One of two ranks on the one card over gloo, named explicitly: each
+    collective the step or kernel 4 needs, on CUDA tensors, with its value
+    checked; where gloo refuses one, what it said. No tensor is staged
+    through the host."""
+    import torch
+    import torch.distributed as dist
+
+    world = 2
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    dev = torch.device("cuda", 0)
+    result = {}
+    try:
+        for probe in GLOO_PROBES:
+            try:
+                if probe == "all_reduce":
+                    t = torch.full((4,), rank + 1.0, device=dev)
+                    dist.all_reduce(t)
+                    ok = bool((t == 3.0).all())
+                elif probe == "all_reduce_min":
+                    t = torch.tensor([rank, 1], dtype=torch.int32, device=dev)
+                    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+                    ok = t.tolist() == [0, 1]
+                elif probe == "broadcast":
+                    t = torch.full((4,), float(rank), device=dev)
+                    dist.broadcast(t, src=0)
+                    ok = bool((t == 0.0).all())
+                elif probe == "all_gather_into_tensor":
+                    t = torch.full((2, 3), float(rank), device=dev)
+                    out = torch.empty((4, 3), device=dev)
+                    dist.all_gather_into_tensor(out, t)
+                    ok = out[:2].eq(0).all().item() and out[2:].eq(1).all().item()
+                else:
+                    t = torch.arange(4, dtype=torch.float32, device=dev).reshape(4, 1).expand(4, 3).contiguous()
+                    out = torch.empty((2, 3), device=dev)
+                    dist.reduce_scatter_tensor(out, t)
+                    ok = bool((out[:, 0] == 2 * torch.arange(2 * rank, 2 * rank + 2, device=dev)).all())
+                torch.cuda.synchronize()
+                result[probe] = "ok" if ok else "wrong values"
+            except (RuntimeError, ValueError, NotImplementedError) as e:
+                result[probe] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        step_needs = ("all_reduce", "all_reduce_min", "broadcast")
+        if all(result[p] == "ok" for p in step_needs):
+            result["step"] = gloo_flagship_step(rank)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def gloo_flagship_step(rank):
+    """One eager flagship step at data=2 over gloo on the card against one
+    un-meshed eager step in the same process, from the same weights."""
+    from cmf_tpu_torch.parallel import get_mesh
+    from cmf_tpu_torch.training import setup_experiment
+
+    single = fresh_setup(MESH_ARGV)
+    config = single["config"]
+    trainer = single["trainer"]
+    flags = trainer.objective.for_epoch(1)
+    x = next(iter(trainer.train_loader))
+    want = float(trainer.eager_step(x, flags)[0])
+    meshed = setup_experiment({**config, "max_epochs": 0}, write_to_disk=False,
+                              mesh=get_mesh(data=2, device="cuda"))["trainer"]
+    got = float(meshed.eager_step(x, flags)[0])
+    return {"loss": got, "single_loss": want, "rel": abs(got - want) / abs(want)}
+
+
+def sharded_kernel_checks(smi, spec):
+    """Kernel 4 on the (1 × 1) NCCL mesh at the main shape against
+    ``fused_gram_logdet`` on the same columns (values and dJ) and against
+    the plain composition (the same collectives around
+    ``gram_logdet_plain``), its ms with the plain composition's, its device
+    ms and the collectives'. Returns the kernels line's entry."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmf_tpu_torch.ops import gram_logdet as gl
+
+    d, b, big_d = MAIN_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    j = torch.randn((d, b, big_d), device=dev, generator=gen)
+    w_ld = torch.randn((b,), device=dev, generator=gen)
+
+    def loss(g, ld):
+        return (ld * w_ld).sum() + 0.3 * g.abs().sum()
+
+    def fwd_bwd(fn):
+        jr = j.clone().requires_grad_(True)
+        g, ld = fn(jr)
+        (dj,) = torch.autograd.grad(loss(g, ld), jr)
+        return g, ld, dj
+
+    def plain(jr):
+        group = spec.mesh.group("model")
+        full = torch.empty_like(jr)
+        dist.all_gather_into_tensor(full, jr.detach().contiguous(), group=group)
+        full.requires_grad_(True)
+        g, ld, _ = gl.gram_logdet_plain(full)
+        (dfull,) = torch.autograd.grad(loss(g, ld), full)
+        dj = torch.empty_like(jr)
+        dist.reduce_scatter_tensor(dj, dfull.contiguous(), group=group)
+        return g, ld, dj
+
+    g4, ld4, dj4 = (t.detach() for t in fwd_bwd(lambda jr: gl.fused_gram_logdet_sharded(jr, spec)))
+    g1, ld1, dj1 = (t.detach() for t in fwd_bwd(gl.fused_gram_logdet))
+    gp, ldp, djp = (t.detach() for t in plain(j))
+    torch.cuda.synchronize()
+    errs = []
+    # On a (1 x 1) mesh the collectives are copies, so against rows 1-2 the
+    # wrapper alone is checked; against the plain composition, the kernels
+    # too.
+    for what, (g, ld, dj) in (("fused_gram_logdet", (g1, ld1, dj1)), ("the plain composition", (gp, ldp, djp))):
+        pairs = ((g4, g), (ld4, ld), (dj4, dj))
+        e = [float((a - c).abs().max()) for a, c in pairs]
+        rels = [rel_err(a, c) for a, c in pairs]
+        print(f"[mesh] {smi}: kernel 4 on the (1 x 1) NCCL mesh against {what} at d,B,D={MAIN_SHAPE}: "
+              f"max abs err gram {e[0]:.3e}, logdet {e[1]:.3e}, dJ {e[2]:.3e} (rel {max(rels[:2]):.3e} values, "
+              f"{rels[2]:.3e} dJ; tol {FWD_TOL:g} values, {BWD_TOL:g} dJ)")
+        assert max(rels[:2]) <= FWD_TOL and rels[2] <= BWD_TOL, f"kernel 4 disagrees with {what}"
+        errs += e
+
+    jr = j.clone().requires_grad_(True)
+
+    def sharded():
+        g, ld = gl.fused_gram_logdet_sharded(jr, spec)
+        return torch.autograd.grad(loss(g, ld), jr)
+
+    def rows12():
+        g, ld = gl.fused_gram_logdet(jr)
+        return torch.autograd.grad(loss(g, ld), jr)
+
+    ms = cuda_ms(sharded, iters=100)
+    ms_rows12 = cuda_ms(rows12, iters=100)
+    plain_ms = cuda_ms(lambda: plain(j), iters=20, warmup=2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            sharded()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    gram_us = sum(e - s for s, e, n in events if "gram_logdet" in n) / 20
+    coll = {k: (c / 20, us / 20) for k, (c, us) in nccl_events(events).items()}
+    # NCCL moves one rank's all-gather and reduce-scatter as device-to-device
+    # copies, not kernels.
+    copies = [(s, e) for s, e, n in events if "dtod" in n.lower()]
+    copy_us = sum(e - s for s, e in copies) / 20
+    device_ms = (sum(e - s for s, e, _ in events) / 20 / 1e3) if events else None
+    # Rows 1-2's bounds plus the gathered and the scattered columns, each
+    # read once and written once.
+    f32 = 4
+    fwd_bytes = f32 * (d * b * big_d + 2 * b * d * d + b)
+    bwd_bytes = f32 * (2 * d * b * big_d + 2 * b * d * d + b)
+    coll_bytes = 2 * 2 * f32 * d * b * big_d
+    fwd_flops = b * (d * (d + 1) * big_d + d ** 3 / 3 + 2 * d)
+    bwd_flops = b * (2 * d ** 3 / 3 + 2 * d * d * big_d + 3 * d * d)
+    b_ms, b_by = bound_ms(fwd_bytes + bwd_bytes + coll_bytes, fwd_flops + bwd_flops)
+    dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
+    coll_txt = ", ".join(f"{k} x{c:g} {us / 1e3:.6f} ms" for k, (c, us) in coll.items()) or "no NCCL kernel"
+    print(f"[mesh] {smi}: kernel 4 forward + backward (with the loss's backward) {ms:.6f} ms per call back to "
+          f"back (CUDA events; rows 1-2 alone, fused_gram_logdet, {ms_rows12:.6f} ms), device {dev_txt} a call: "
+          f"rows 1-2's kernels {gram_us / 1e3:.6f} ms; the collectives: {coll_txt}; device-to-device copies "
+          f"x{len(copies) / 20:g} {copy_us / 1e3:.6f} ms (NCCL's one-rank all-gather and reduce-scatter); the "
+          f"plain composition {plain_ms:.6f} ms; bound {b_ms:.6f} ms ({b_by}: rows 1-2's {fwd_bytes + bwd_bytes} B "
+          f"+ {coll_bytes} B gathered and scattered, {fwd_flops + bwd_flops:.4g} FLOP)")
+    return {"name": "fused_gram_logdet_sharded", "route": "cuda", "source": "cmf_tpu_torch/ops/gram_logdet.py",
+            "replaces": "cmf_tpu/ops/pallas/gram_logdet.py:212", "launches": None, "_launches_key": "GRAM_SHARDED",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def phase_mesh(smi, counts):
+    """The parallel slice on the card: the flagship through ``torchrun
+    --nproc_per_node 1 -m cmf_tpu_torch --mesh data=1`` (NCCL, captured)
+    against the un-meshed run of the same seed; the flagship's head under a
+    (1 × 1) column partition through kernel 4 (its launches counted, added
+    to ``counts``); kernel 4 alone against rows 1-2; two ranks on the one
+    card over gloo. Returns kernel 4's kernels-line entry."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.parallel import ColumnSpec, get_mesh, initialize_multihost, jacobian_column_partition
+
+    phase_t0 = time.perf_counter()
+    here = os.path.abspath(__file__)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        # The torchrun rank and the two gloo ranks start together; the
+        # un-meshed run goes on here meanwhile. Nothing is timed until they
+        # have exited.
+        rank_out = os.path.join(tmp, "rank.json")
+        gloo_outs = [os.path.join(tmp, f"gloo{r}.json") for r in range(2)]
+        cmds = [[sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                 here, "--mesh-rank", rank_out]]
+        cmds += [[sys.executable, here, "--gloo-rank", str(r), os.path.join(tmp, "gloo_init"), gloo_outs[r]]
+                 for r in range(2)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        try:
+            (single,) = cli_main(MESH_ARGV)
+            torch.cuda.synchronize()
+            s_trainer = single["trainer"]
+            s_history = [h[1] for h in s_trainer.history]
+            flags = s_trainer.objective.for_epoch(s_trainer.epoch)
+            x = next(iter(s_trainer.train_loader))
+            deadline = time.monotonic() + MESH_TIMEOUT_S
+            outs = []
+            for p in procs:
+                out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+                outs.append((p.returncode, out))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(10)
+        for (rc, out), what in zip(outs, ("torchrun rank", "gloo rank 0", "gloo rank 1")):
+            if rc != 0:
+                print(f"[mesh] the {what} failed (rc {rc}); the end of its output:\n{out[-4000:]}")
+        assert all(rc == 0 for rc, _ in outs), "[mesh] a rank failed"
+        with open(rank_out) as f:
+            meshed = json.load(f)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(meshed["history"], s_history))
+        print(f"[mesh] {smi}: torchrun --nproc_per_node 1 -m cmf_tpu_torch --mesh data=1: {meshed['backend']} "
+              f"{meshed['mesh']}, {len(meshed['history'])} steps, losses {meshed['history'][0]:.6g} -> "
+              f"{meshed['history'][-1]:.6g}; the un-meshed run's {s_history[0]:.6g} -> {s_history[-1]:.6g}; "
+              f"max rel diff {rel:.3e} (tol {MESH_LOSS_RTOL:g})")
+        print(f"[mesh] {smi}: captured {meshed['captured']}, {meshed['graphs']} graph(s); Gram/log-det launches "
+              f"(fwd, bwd) {tuple(meshed['launches'])}")
+        nccl = meshed["nccl_per_replay"]
+        print(f"[mesh] {smi}: one trace of 5 replays: {meshed['ops_per_replay']:.1f} device ops a replay; NCCL "
+              "kernels a replay: " + (", ".join(f"{k} x{c:g} {us / 1e3:.6f} ms" for k, (c, us) in nccl.items())
+                                       or "none"))
+        assert len(meshed["history"]) == len(s_history) and rel <= MESH_LOSS_RTOL, \
+            "--mesh data=1 trained other losses than the un-meshed run"
+        assert meshed["captured"] and meshed["graphs"] == 1, "the --mesh data=1 step was not captured"
+        assert tuple(meshed["launches"]) == (len(s_history), len(s_history)), "rows 1-2 launches != steps"
+        assert nccl, "no NCCL kernel ran inside the replays"
+
+        for r, path in enumerate(gloo_outs):
+            with open(path) as f:
+                gloo = json.load(f)
+            print(f"[mesh] {smi}: two ranks on the one card over gloo, rank {r}: " +
+                  ", ".join(f"{p} {gloo[p]}" for p in GLOO_PROBES))
+            assert all(gloo[p] == "ok" or gloo[p].startswith("refused") for p in GLOO_PROBES), \
+                "a gloo collective gave wrong values"
+            if "step" in gloo:
+                s = gloo["step"]
+                print(f"[mesh] {smi}: gloo rank {r}: a data=2 eager flagship step, loss {s['loss']:.8g} against "
+                      f"one rank's {s['single_loss']:.8g} (rel {s['rel']:.3e}, tol {MESH_LOSS_RTOL:g})")
+                assert s["rel"] <= MESH_LOSS_RTOL, "the gloo data=2 step disagrees with one rank's"
+            else:
+                print(f"[mesh] {smi}: gloo rank {r}: no data=2 step: gloo refused a collective the step needs")
+
+        # The flagship's head under a (1 x 1) column partition: every step
+        # through kernel 4, counted from 0 around the run.
+        assert initialize_multihost(f"file://{os.path.join(tmp, 'nccl_init')}", 1, 0)
+        try:
+            # The captured step under --mesh data=1 against the un-meshed
+            # one, timed here with every other process gone, in the order
+            # un-meshed, meshed, meshed, un-meshed.
+            (m_setup,) = cli_main(MESH_ARGV + ["--mesh", "data=1"])
+            m_trainer = m_setup["trainer"]
+            m_rel = max(abs(a - b) / abs(b) for a, b in zip([h[1] for h in m_trainer.history], s_history))
+            assert m_trainer.captured and m_rel <= MESH_LOSS_RTOL, "the in-process --mesh data=1 run differs"
+            step_ms = {"un-meshed": [], "meshed": []}
+            for which, t in (("un-meshed", s_trainer), ("meshed", m_trainer), ("meshed", m_trainer),
+                             ("un-meshed", s_trainer)):
+                step_ms[which].append(cuda_ms(lambda: t.step(x, flags), iters=50, warmup=3))
+            means = {k: sum(v) / len(v) for k, v in step_ms.items()}
+            print(f"[mesh] {smi}: captured step, alone on the card (CUDA events, 50 back-to-back replays each, "
+                  f"un-meshed, meshed, meshed, un-meshed): --mesh data=1 {means['meshed']:.4f} ms "
+                  f"{[round(v, 4) for v in step_ms['meshed']]} against un-meshed {means['un-meshed']:.4f} ms "
+                  f"{[round(v, 4) for v in step_ms['un-meshed']]}; difference "
+                  f"{means['meshed'] - means['un-meshed']:+.4f} ms")
+            del m_trainer, m_setup
+            spec = ColumnSpec(get_mesh(data=1, model=1))
+            gl.reset_launch_counts()
+            with jacobian_column_partition(spec):
+                (part,) = cli_main(MESH_ARGV + ["--mesh", "data=1"])
+            torch.cuda.synchronize()
+            sharded = gl.sharded_launch_counts()
+            rows12 = gl.launch_counts()
+            p_trainer = part["trainer"]
+            p_history = [h[1] for h in p_trainer.history]
+            p_rel = max(abs(a - b) / abs(b) for a, b in zip(p_history, s_history))
+            print(f"[mesh] {smi}: the flagship's head under a (1 x 1) column partition: {len(p_history)} steps, "
+                  f"captured {p_trainer.captured} ({len(captured_steps(p_trainer))} graph(s)); kernel 4 launches "
+                  f"(fwd, bwd) {sharded}, rows 1-2 {rows12}; losses against the un-meshed run: max rel diff "
+                  f"{p_rel:.3e} (tol {MESH_LOSS_RTOL:g})")
+            assert p_trainer.captured and len(captured_steps(p_trainer)) == 1
+            assert sharded == (len(p_history), len(p_history)) == rows12, "kernel 4 launches != steps"
+            assert p_rel <= MESH_LOSS_RTOL, "the partitioned head trained other losses"
+            counts["GRAM_SHARDED"] = sharded[0]
+            counts["GRAM_FWD"] += rows12[0]
+            counts["GRAM_BWD"] += rows12[1]
+            entry = sharded_kernel_checks(smi, spec)
+            del p_trainer, part
+        finally:
+            torch.cuda.synchronize()
+            torch.distributed.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[mesh] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+    return entry
+
+
 def main():
     import torch
 
@@ -4402,6 +4800,7 @@ def main():
         timed("bf16-flagship", phase_bf16_flagship, smi, counts, step_ms)
         timed("bf16-mnist", phase_bf16_mnist, smi, setup, counts)
         timed("conv-gram", phase_conv_gram, smi)
+        kernels.append(timed("mesh", phase_mesh, smi, counts))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:
@@ -4415,4 +4814,11 @@ def main():
 
 
 if __name__ == "__main__":
+    # The [mesh] phase's own ranks: one under torchrun, two over gloo.
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -22,12 +22,17 @@ through the statistics its encoder's forward just took
 live ``mean`` and ``var``, with their autograd graph (none with ``detach``),
 as ``live_stats``; the inverse and the dense decode program read them
 (``inverse_statistics``) inside ``batch_statistics``.
+
+Under a mesh the batch's statistics are the global batch's
+(``parallel.mesh.batch_mean``: sums over the data group, differentiable),
+as GSPMD makes ``cmf_tpu``'s means global.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import batch_mean
 from .base import Bijection
 
 
@@ -62,7 +67,7 @@ class BatchNormBijection(Bijection):
         self.live_stats = None
 
     def _average(self, data):
-        return data.mean(dim=self.average_axes, keepdim=True)[0]
+        return batch_mean(data, self.average_axes, keepdim=True)[0]
 
     def _log_jac(self, var, batch_size):
         summands = -0.5 * torch.log(var + self.eps)

@@ -14,6 +14,8 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.mesh import draw_rows
+
 
 class ConcreteConditionalDensity(nn.Module):
     def __init__(self, log_alpha_map, lam):
@@ -40,7 +42,10 @@ class ConcreteConditionalDensity(nn.Module):
         log_alpha = self.log_alpha_map(cond_inputs)
         if gumbel is None:
             tiny = torch.finfo(log_alpha.dtype).tiny
-            u = torch.rand(log_alpha.shape, generator=generator, dtype=log_alpha.dtype, device=log_alpha.device)
+            u = draw_rows(
+                lambda shape: torch.rand(shape, generator=generator, dtype=log_alpha.dtype, device=log_alpha.device),
+                log_alpha.shape,
+            )
             gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
         sample = torch.softmax((log_alpha + gumbel) / self.lam, dim=-1)
         return sample, self.log_prob(sample, cond_inputs)

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from ..nets import BatchNorm2d
+from ..parallel.mesh import draw_rows
 from .base import Density
 
 
@@ -30,7 +31,10 @@ def diagonal_gaussian_sample(means, stddevs, generator=None, noise=None):
     means' device."""
     epsilon = noise
     if epsilon is None:
-        epsilon = torch.randn(means.shape, generator=generator, dtype=means.dtype, device=means.device)
+        epsilon = draw_rows(
+            lambda shape: torch.randn(shape, generator=generator, dtype=means.dtype, device=means.device),
+            means.shape,
+        )
     samples = stddevs * epsilon + means
     flat_eps = epsilon.reshape(epsilon.shape[0], -1)
     flat_std = stddevs.reshape(stddevs.shape[0], -1)

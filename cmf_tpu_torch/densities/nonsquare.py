@@ -35,6 +35,7 @@ torch).
   evaluation and ``ood`` take the exact log-det as above.
 """
 
+import math
 import warnings
 
 import torch
@@ -45,7 +46,13 @@ from ..nets import running_statistics_held
 from ..ops.cg import batched_cg
 from ..ops.chol import cholesky_logdet, spd_solve
 from ..ops.gram import gram_from_columns
-from ..ops.gram_logdet import fused_gram_logdet, fused_gram_logdet_available
+from ..ops.gram_logdet import (
+    fused_gram_logdet,
+    fused_gram_logdet_available,
+    fused_gram_logdet_sharded,
+    fused_gram_logdet_sharded_available,
+)
+from ..parallel.mesh import batch_all, draw_rows, global_rows, jacobian_column_spec
 
 _VALID_METHODS = ("cholesky", "hutch_with_cg")
 _VALID_SOLVERS = ("auto", "gram", "cg")
@@ -80,19 +87,26 @@ def _fallback_counter(device):
 def exact_log_det_from_columns(jac_cols):
     """(gram (B,d,d), log_det (B,)) of (d, B, D) Jacobian columns, as
     cmf_tpu routes them (nonsquare.py:248-266). Inside the kernels' gate the
-    fused Gram + Cholesky + log-det; where its log-det is not all finite, the
-    jittered Cholesky of the kernel's Gram takes its place, so the gradient
-    flows back into the backward kernel through Ḡ. The reference's
-    ``lax.cond`` is a select on the device here: the fallback is computed
-    every call, on the identity where it is not taken, so that no NaN of an
-    unselected branch reaches the gradient as 0·NaN. Outside the gate the
-    plain Gram and the jittered Cholesky."""
+    fused Gram + Cholesky + log-det, with the jitter fallback
+    (``_kernel_or_fallback``); outside it, the plain Gram and the jittered
+    Cholesky."""
     d, big_d = jac_cols.shape[0], jac_cols.shape[-1]
     if not fused_gram_logdet_available(d, big_d):
         gram = gram_from_columns(jac_cols)
         return gram, cholesky_logdet(gram)[0]
-    gram, kernel_log_det = fused_gram_logdet(jac_cols)
-    ok = torch.isfinite(kernel_log_det).all()
+    return _kernel_or_fallback(*fused_gram_logdet(jac_cols))
+
+
+def _kernel_or_fallback(gram, kernel_log_det):
+    """Where the kernel's log-det is not all finite, the jittered Cholesky
+    of its Gram takes its place, so the gradient flows back into the
+    backward kernel through Ḡ. The reference's ``lax.cond`` is a select on
+    the device here: the fallback is computed every call, on the identity
+    where it is not taken, so that no NaN of an unselected branch reaches
+    the gradient as 0·NaN. Under a mesh the predicate is the global batch's
+    (an all-reduce MIN), so every rank takes the same branch."""
+    d = gram.shape[-1]
+    ok = batch_all(torch.isfinite(kernel_log_det).all())
     eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
     fallback_log_det, _ = cholesky_logdet(torch.where(ok, eye, gram))
     _fallback_counter(ok.device).add_(~ok)
@@ -251,11 +265,13 @@ class NonSquareHeadDensity(Density):
             self._program_checked = True
         return self._program
 
-    def _generic_jacobian(self, z):
-        """(recon_flat (B, D), jac_cols (d, B, D)): a JVP of the flat decode
-        for each of the d basis tangents, batched by ``torch.func.vmap``."""
+    def _generic_jacobian(self, z, columns=None):
+        """(recon_flat (B, D), jac_cols (k, B, D)): a JVP of the flat decode
+        for each of the basis tangents ``columns`` = (start, stop) of d (all
+        d by default), batched by ``torch.func.vmap``."""
         batch, d = z.shape
-        basis = torch.eye(d, dtype=z.dtype, device=z.device)
+        start, stop = (0, d) if columns is None else columns
+        basis = torch.eye(d, dtype=z.dtype, device=z.device)[start:stop]
 
         def column(e):
             return torch.func.jvp(self._decode_flat, (z,), (e.expand(batch, d),))
@@ -265,13 +281,29 @@ class NonSquareHeadDensity(Density):
     def _exact_log_det(self, z):
         """(non_square.py:262-311) d basis-tangent pushforwards → Gram →
         Cholesky log-det. Returns (log_det, recon_flat, gram). A program
-        with conv stages is not taken here (nonsquare.py:211-220)."""
+        with conv stages is not taken here (nonsquare.py:211-220).
+
+        Under a column partition (``parallel.mesh.jacobian_column_partition``,
+        nonsquare.py:228-262) inside kernel 4's gate, this rank pushes only
+        its d/n_model basis tangents and kernel 4 all-gathers the columns
+        over the model group; outside the gate every rank pushes all d for
+        its own rows and takes the unpartitioned route, rows 1-2 inside
+        their gate."""
+        batch, d = z.shape
+        spec = jacobian_column_spec()
+        sharded = spec is not None and fused_gram_logdet_sharded_available(
+            d, global_rows(batch), math.prod(self.x_shape), spec
+        )
+        columns = spec.columns(d) if sharded else None
         program = self._dense_decode_program()
         if program is not None and not program.has_conv:
-            recon_flat, jac_cols = program(z)
+            recon_flat, jac_cols = program(z, columns)
         else:
-            recon_flat, jac_cols = self._generic_jacobian(z)
-        gram, log_det = exact_log_det_from_columns(jac_cols)
+            recon_flat, jac_cols = self._generic_jacobian(z, columns)
+        if sharded:
+            gram, log_det = _kernel_or_fallback(*fused_gram_logdet_sharded(jac_cols, spec))
+        else:
+            gram, log_det = exact_log_det_from_columns(jac_cols)
         return log_det, recon_flat, gram
 
     def _resolved_hutch_solver(self, d):
@@ -308,10 +340,13 @@ class NonSquareHeadDensity(Density):
         S = self.num_hutchinson_samples
         if eps is None:
             shape = (batch, d, S)
+            # Under a mesh: the global batch's draw, this rank's rows.
             if self.hutchinson_distribution == "normal":
-                eps = torch.randn(shape, generator=generator, dtype=z.dtype, device=z.device)
+                eps = draw_rows(
+                    lambda s: torch.randn(s, generator=generator, dtype=z.dtype, device=z.device), shape
+                )
             elif self.hutchinson_distribution == "rademacher":
-                bits = torch.randint(0, 2, shape, generator=generator, device=z.device)
+                bits = draw_rows(lambda s: torch.randint(0, 2, s, generator=generator, device=z.device), shape)
                 eps = (2 * bits - 1).to(z.dtype)
             else:
                 raise ValueError(f"Unknown hutchinson distribution {self.hutchinson_distribution}")

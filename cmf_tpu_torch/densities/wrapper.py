@@ -17,6 +17,7 @@ trainer puts the training state back after the evaluation.
 
 import torch
 
+from ..parallel.mesh import draw_rows
 from .base import Density
 from ..nets import batch_statistics
 
@@ -29,7 +30,9 @@ class DequantizationDensity(Density):
     def elbo(self, x, generator=None, dequantization_noise=None, **kw):
         noise = dequantization_noise
         if noise is None:
-            noise = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            noise = draw_rows(
+                lambda shape: torch.rand(shape, generator=generator, dtype=x.dtype, device=x.device), x.shape
+            )
         return self.density.elbo(x + noise, generator=generator, **kw)
 
     @property

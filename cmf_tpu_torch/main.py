@@ -17,6 +17,16 @@ the port carries so far: training, resuming, the analyses above,
 process's strided slice of the expanded config × seed jobs). ``--resume``
 reads the run's ``config.json`` and ignores the other settings. Without
 ``--device cpu`` it runs on the card, and raises where there is none.
+
+``--mesh data=N`` trains (and ``--test`` tests) data-parallel over N ranks,
+each launched by ``torchrun --nproc_per_node N -m cmf_tpu_torch ...``
+(NCCL on the card, gloo with ``--device cpu``): N must be the launcher's
+world size, and N > 1 without a launcher raises. As in the JAX package's
+CLI (main.py:69-72,96-111) only a ``data`` axis is accepted; without
+``--mesh`` every launched rank joins the data axis, and a process that no
+launcher started runs alone, with no mesh. The ranks take rank 0's seeds
+and only rank 0 writes the run dir. ``--grid-shard`` stays a fan-out of
+separate processes, independent of the mesh.
 """
 
 import argparse
@@ -26,8 +36,10 @@ import json
 import pprint
 from pathlib import Path
 
+import torch
+
 from .config import expand_grid, get_config, get_datasets, get_models, get_schema
-from .parallel import grid_jobs, host_shard
+from .parallel import get_mesh, grid_jobs, host_shard, initialize_multihost, launched, replicate
 
 
 def parse_config_arg(key_value):
@@ -72,11 +84,51 @@ def build_parser():
                         help="Use shape-matched synthetic stand-ins for tabular and image data.")
     parser.add_argument("--profile-dir", default=None,
                         help="Write a torch.profiler trace of the first post-capture epoch here.")
+    parser.add_argument("--mesh", default=None,
+                        help="`data=N': data-parallel over the N ranks torchrun launched. "
+                             "Default: every launched rank on one data axis.")
     parser.add_argument("--grid-shard", default=None,
                         help="`i/n`: run the i-th of n slices of the expanded (config×seed) grid on this host.")
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
                         help="Default: the card. `cpu' runs the plain PyTorch path.")
     return parser
+
+
+def parse_mesh(spec):
+    """``data=N`` → N (main.py:96-111: only a data axis)."""
+    axis, _, n = spec.partition("=")
+    if axis != "data" or not n.isdigit() or int(n) < 1:
+        raise ValueError(f"--mesh takes `data=N' with N ≥ 1 (only a data axis), got `{spec}'")
+    return int(n)
+
+
+def make_mesh(spec, device=None):
+    """The run's mesh: ``--mesh data=N`` or, under a launcher, every rank
+    on the data axis; None for a process no launcher started and no
+    ``--mesh`` (or ``data=1``)."""
+    n = None if spec is None else parse_mesh(spec)
+    if not launched() and not torch.distributed.is_initialized():
+        if n is not None and n > 1:
+            raise RuntimeError(
+                f"--mesh data={n} needs {n} ranks: launch them with "
+                f"`torchrun --nproc_per_node {n} -m cmf_tpu_torch ...'"
+            )
+        return None
+    initialize_multihost(device=device)
+    world = torch.distributed.get_world_size()
+    if n is not None and n != world:
+        raise ValueError(f"--mesh data={n} but the launcher started {world} ranks")
+    return get_mesh(data=world)
+
+
+def _shared_seeds(jobs, mesh):
+    """Every rank takes rank 0's seeds (a seed from the clock differs
+    between processes)."""
+    seeds = torch.tensor([int(j["seed"]) for j in jobs], dtype=torch.int64, device=mesh.device)
+    replicate(mesh, [seeds])
+    for j, seed in zip(jobs, seeds.tolist()):
+        j["seed"] = seed
+    return jobs
 
 
 def main(argv=None):
@@ -150,6 +202,16 @@ def main(argv=None):
     if not (should_train or args.test):
         return []
 
+    owns_group = not torch.distributed.is_initialized()
+    mesh = make_mesh(args.mesh, device=args.device)
+    try:
+        return _run_jobs(args, grid, mesh, analyses)
+    finally:
+        if owns_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run_jobs(args, grid, mesh, analyses):
     from .training import (
         centering_test_plots,
         generate_ood_metrics,
@@ -160,8 +222,14 @@ def main(argv=None):
         visualize_two_dim_manifold,
     )
 
+    if mesh is not None and mesh.size > 1 and any(analyses[2:]):
+        raise ValueError("--test-ood, --test-metric, --test-center and --two-dim-manifold run on one rank")
     # Expand (config, seed) jobs, then optionally take this host's shard
     jobs = grid_jobs(grid, args.num_seeds)
+    on_mesh = {}
+    if mesh is not None:
+        jobs = _shared_seeds(jobs, mesh)
+        on_mesh = {"mesh": mesh}
     if args.grid_shard:
         i, n = (int(v) for v in args.grid_shard.split("/"))
         jobs = host_shard(jobs, i, n)
@@ -173,7 +241,7 @@ def main(argv=None):
             if args.test or args.test_fid:
                 results.append(test_and_visualize(
                     config=c, resume_dir=args.resume, overwrite=args.overwrite_metrics,
-                    test_fid=args.test_fid, device=args.device,
+                    test_fid=args.test_fid, device=args.device, **on_mesh,
                 ))
             elif args.two_dim_manifold:
                 results.append(visualize_two_dim_manifold(config=c, resume_dir=args.resume, device=args.device))
@@ -185,5 +253,5 @@ def main(argv=None):
             elif args.test_center:
                 results.append(centering_test_plots(config=c, resume_dir=args.resume, device=args.device))
             else:
-                results.append(train(config=c, resume_dir=args.resume, device=args.device))
+                results.append(train(config=c, resume_dir=args.resume, device=args.device, **on_mesh))
     return results

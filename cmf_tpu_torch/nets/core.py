@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.coupler_stack import coupler_kernel_available, fused_resnet_coupler
+from ..parallel.mesh import batch_var_mean
 
 # The coupler nets' compute dtype (nets/core.py:26); parameters stay fp32.
 _COMPUTE_DTYPE = [torch.float32]
@@ -244,7 +245,8 @@ class BatchNorm2d(nn.Module):
     leaves its running statistics where they were: the conditional
     Gaussians of a CIF layer, whose state the JAX package's ``ELBODensity``
     hands back unchanged (elbo.py:36-41). Outside the switch it normalises
-    by the running statistics."""
+    by the running statistics. Under a mesh the batch's statistics are the
+    global batch's (``parallel.mesh.batch_var_mean``)."""
 
     def __init__(self, num_channels, momentum=0.1, eps=1e-5, detach=False):
         super().__init__()
@@ -260,7 +262,7 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         if self.batch_stats:
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = batch_var_mean(x, (0, 2, 3))
             if self.detach:
                 mean, var = mean.detach(), var.detach()
             if self.updates_running:

@@ -14,9 +14,15 @@
 
 The loop's convergence test reads one flag on the host per iteration, where
 the JAX package keeps the whole loop on the device (``lax.while_loop``).
+Under a mesh the batch mean is the global batch's (a sum over the data
+group), so every rank runs the same iterations: with batch-norm in the
+matvec a rank that stopped early would leave the others waiting in a
+collective.
 """
 
 import torch
+
+from ..parallel.mesh import batch_mean
 
 
 def batched_cg(matvec, rhs, max_iter, tolerance=1.0, eps=1e-10, first_matvec=None):
@@ -34,7 +40,7 @@ def batched_cg(matvec, rhs, max_iter, tolerance=1.0, eps=1e-10, first_matvec=Non
         return torch.sqrt((r * r).sum(dim=-2))  # (..., S)
 
     def not_converged(r):
-        mean_over_batch = resid_norm(r).reshape(-1, r.shape[-1]).mean(dim=0)
+        mean_over_batch = batch_mean(resid_norm(r).reshape(-1, r.shape[-1]), (0,))
         return bool((mean_over_batch >= tolerance).any())
 
     def step(x, r, p, Ap, active):

@@ -16,6 +16,8 @@ exact-Gram Hutchinson solver's (JᵀJ)⁻¹ε, with L for its log-det.
 
 import torch
 
+from ..parallel.mesh import batch_all
+
 _EPS0 = 1e-6
 _EPS_FACTOR = 10.0
 _MAX_ATTEMPTS = 6
@@ -58,7 +60,8 @@ def jittered_cholesky(gram):
     are built by its repeated adds (``g = g + eps·I``, ``total + eps``,
     ``eps·10``). Level 0 (no jitter) and the six tries are factorised as one
     batch without a gradient; the first level whose whole batch is finite
-    is taken, the last one where none is. L is one clean differentiable
+    is taken, the last one where none is (under a mesh, whose whole global
+batch is finite: one level for every rank). L is one clean differentiable
     factorisation of ``gram + total·I``: at total 0 that is the level-0
     factor itself, since ``gram + 0·I`` is ``gram``.
     """
@@ -74,7 +77,8 @@ def jittered_cholesky(gram):
             totals.append(totals[-1] + eps)
             eps = eps * _EPS_FACTOR
         factors = _cholesky(torch.stack(tries))
-        finite = torch.isfinite(factors).reshape(len(tries), -1).all(dim=1)
+        # Under a mesh a try is taken only where every rank's rows factor.
+        finite = batch_all(torch.isfinite(factors).reshape(len(tries), -1).all(dim=1))
         finite[-1].fill_(True)  # every try failed: the reference stops at the last
         # argmax gives the first of equal maxima.
         level = torch.argmax(finite.to(torch.int32)).reshape(1)

@@ -266,32 +266,36 @@ class DenseDecodeProgram:
         self.latent_dim = latent_dim
         self.has_conv = has_conv
 
-    def __call__(self, z):
-        """z (B, d) → (recon_flat (B, D), jac_cols (d, B, D))."""
+    def __call__(self, z, columns=None):
+        """z (B, d) → (recon_flat (B, D), jac_cols (k, B, D)): the columns
+        of the basis tangents ``columns`` = (start, stop) of d (a rank's
+        share under a column partition), all d by default."""
         B, d = z.shape
         D = self.flat_dim
         assert d == self.latent_dim
+        start, stop = (0, d) if columns is None else columns
+        k = stop - start
         x0 = torch.cat([z, z.new_zeros(B, D - d)], dim=1)
-        basis = torch.eye(d, D, dtype=z.dtype, device=z.device)
-        X = torch.cat([x0[None], basis[:, None].expand(d, B, D)], dim=0)
+        basis = torch.eye(d, D, dtype=z.dtype, device=z.device)[start:stop]
+        X = torch.cat([x0[None], basis[:, None].expand(k, B, D)], dim=0)
         X = X[:, :, self.tail.inverse_permutation]
         if len(self.tail_shape) > 1:
-            X = X.reshape(d + 1, B, *self.tail_shape)
+            X = X.reshape(k + 1, B, *self.tail_shape)
 
         for step in self.steps:
             kind = step["kind"]
             if kind == "acl":
-                X = _flat_acl(step, X, d)
+                X = _flat_acl(step, X, k)
             elif kind == "conv_acl":
                 X = _conv_acl(step, X)
             elif kind == "bn":
-                X = _bn_inverse(step["bij"], X, d)
+                X = _bn_inverse(step["bij"], X, k)
             elif kind == "perm":
                 X = X.index_select(step["axis"], step["bij"].inverse_permutation)
             elif kind == "flip":
                 X = torch.flip(X, dims=(-1,))
             elif kind == "view":
-                X = X.reshape(d + 1, B, *step["shape"])
+                X = X.reshape(k + 1, B, *step["shape"])
             elif kind == "squeeze_inv":
                 X = _squeeze_inv(step, X)
             elif kind == "split_pad":
@@ -301,7 +305,7 @@ class DenseDecodeProgram:
                 raise AssertionError(kind)
 
         recon = X[0].reshape(B, -1)
-        jac_cols = X[1:].reshape(d, B, -1)
+        jac_cols = X[1:].reshape(k, B, -1)
         return recon, jac_cols
 
 

@@ -16,6 +16,15 @@ versions. Each wrapper counts its launches on the device, one add on the
 launch's stream right after the kernel, so a run can show that its main path
 went through them; ``launch_counts`` reads the counts on the host.
 
+``fused_gram_logdet_sharded`` (kernel 4, ``gram_logdet.py:212-268``) is the
+multi-rank wrapper, no kernel body of its own: under a column partition
+(``parallel/mesh.py``) each rank all-gathers the (d/n_model, B/n_data, D)
+column shards of its model group (NCCL on the card, as ``cmf_tpu``'s are
+XLA's), runs kernels 1-2 on its rows and sends the backward's dJ back by a
+reduce-scatter (SUM), the transpose of the all-gather. Its launches are
+counted apart (``sharded_launch_counts``); the kernels it runs count
+theirs too.
+
 Both kernels can be captured in a CUDA graph: they launch on
 ``torch.cuda.current_stream()`` (the autograd backward runs on the stream of
 its forward, the capture stream), take every buffer from torch's allocator,
@@ -27,6 +36,7 @@ count's add with its kernel, so a replay counts its launches too.
 import ctypes
 
 import torch
+import torch.distributed as dist
 from torch.autograd.function import once_differentiable
 
 from .chol import _cholesky
@@ -41,25 +51,36 @@ MAX_D_AMBIENT = 128
 # Device → int64 (2,): launches of the forward and of the backward kernel.
 # Made at a device's first eager launch, before any capture.
 _LAUNCHES = {}
+# The same for kernel 4's forward and backward (each launches kernel 1 or 2).
+_SHARDED_LAUNCHES = {}
+
+
+def _read(counters):
+    counts = [c.tolist() for c in counters.values()]
+    return tuple(sum(c[i] for c in counts) for i in range(2))
 
 
 def launch_counts():
     """(forward, backward) kernel launches so far on every device (a host
     read)."""
-    counts = [c.tolist() for c in _LAUNCHES.values()]
-    return tuple(sum(c[i] for c in counts) for i in range(2))
+    return _read(_LAUNCHES)
+
+
+def sharded_launch_counts():
+    """(forward, backward) launches of kernel 4 so far (a host read)."""
+    return _read(_SHARDED_LAUNCHES)
 
 
 def reset_launch_counts():
     """Zero the counts in place: a captured graph keeps its counter."""
-    for c in _LAUNCHES.values():
+    for c in list(_LAUNCHES.values()) + list(_SHARDED_LAUNCHES.values()):
         c.zero_()
 
 
-def _count_launch(device, which):
-    if device not in _LAUNCHES:
-        _LAUNCHES[device] = torch.zeros(2, dtype=torch.int64, device=device)
-    _LAUNCHES[device][which].add_(1)
+def _count_launch(device, which, counters=_LAUNCHES):
+    if device not in counters:
+        counters[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    counters[device][which].add_(1)
 
 
 def fused_gram_logdet_available(d, big_d):
@@ -264,3 +285,67 @@ def fused_gram_logdet(jac_cols):
     log-det: NaN where the Gram is not PD. The caller keeps the jitter
     fallback (densities/nonsquare.py)."""
     return _FusedGramLogdet.apply(jac_cols)
+
+
+# ---------------------------------------------------- kernel 4: sharded
+def fused_gram_logdet_sharded_available(d, batch, big_d, spec):
+    """The gate of kernel 4 (gram_logdet.py:259-268): the columns and the
+    global batch divide evenly over their axes of ``spec`` (a
+    ``parallel.mesh.ColumnSpec``, whose D axis is never sharded), inside
+    kernels 1-2's gate."""
+    if d % spec.axis_size(spec.column_axis) or batch % spec.axis_size(spec.batch_axis):
+        return False
+    return fused_gram_logdet_available(d, big_d)
+
+
+class _ShardedGramLogdet(torch.autograd.Function):
+    """Forward: all-gather the column shards over the model group, kernel 1
+    on (d, B_local, D); backward: kernel 2, then a reduce-scatter (SUM) of
+    dJ over the model group, each rank keeping its columns' rows. On CPU
+    tensors (gloo) the plain versions take the kernels' place."""
+
+    @staticmethod
+    def forward(ctx, jac_local, group, n):
+        full = jac_local.contiguous()
+        if group is not None:
+            full = jac_local.new_empty((n * jac_local.shape[0],) + tuple(jac_local.shape[1:]))
+            dist.all_gather_into_tensor(full, jac_local.contiguous(), group=group)
+        if full.is_cuda:
+            gram, logdet, L = gram_logdet_fwd_cuda(full)
+            _count_launch(full.device, 0, _SHARDED_LAUNCHES)
+        else:
+            gram, logdet, L = gram_logdet_plain(full)
+        ctx.save_for_backward(full, L)
+        ctx.group, ctx.local_shape = group, tuple(jac_local.shape)
+        return gram, logdet
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gbar, ldbar):
+        full, L = ctx.saved_tensors
+        gbar, ldbar = gbar.contiguous(), ldbar.contiguous()
+        if full.is_cuda:
+            dfull = gram_logdet_bwd_cuda(full, L, gbar, ldbar)
+            _count_launch(full.device, 1, _SHARDED_LAUNCHES)
+        else:
+            dfull = gram_logdet_bwd_plain(full, L, gbar, ldbar)
+        if ctx.group is None:
+            return dfull, None, None
+        djac = dfull.new_empty(ctx.local_shape)
+        dist.reduce_scatter_tensor(djac, dfull.contiguous(), op=dist.ReduceOp.SUM, group=ctx.group)
+        return djac, None, None
+
+
+def fused_gram_logdet_sharded(jac_cols, spec):
+    """``fused_gram_logdet`` under a column partition (gram_logdet.py:
+    212-256): ``jac_cols`` is this rank's (d/n_model, B_local, D) shard of
+    the columns, laid out by ``spec`` (a ``parallel.mesh.ColumnSpec``).
+    Returns this rank's rows' (gram (B_local,d,d), logdet (B_local,)), the
+    same on every rank of a model group. Each model rank backpropagates the
+    same Gram, so the reduce-scatter returns n_model times each column's
+    cotangent to its owner; the trainer's gradient mean over the whole
+    world (data × model, ``parallel.mesh.all_reduce_gradients``) divides it
+    back, and counts the replicated terms once."""
+    n = spec.axis_size(spec.column_axis)
+    group = spec.mesh.group(spec.column_axis) if spec.column_axis is not None else None
+    return _ShardedGramLogdet.apply(jac_cols, group, n)

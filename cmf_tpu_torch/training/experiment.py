@@ -19,6 +19,13 @@ image metric analysis (``metric_test_plots``), the centering analysis
 
 A config that asks for something this slice does not carry raises
 ``NotImplementedError`` here, before any work: it is never quietly skipped.
+
+Under a mesh (``parallel.mesh.get_mesh``; the CLI's ``--mesh``) setup,
+training and ``--test`` run on every rank, each holding the whole model and
+its rows of each batch (the trainer's ``batch_sharding``); only rank 0
+writes the run dir, its metadata, scalars, figures and checkpoints, as
+``cmf_tpu``'s process 0 does, and the other ranks' writers only load. A
+checkpoint written at any world size restores at any other.
 """
 
 import json
@@ -47,6 +54,7 @@ from ..eval.inception import get_feature_fn
 from ..eval.metrics import metrics
 from ..models import get_density
 from ..nets import set_compute_dtype
+from ..parallel.mesh import data_sharding
 from .objectives import get_objective
 from .optim import make_optimizer
 from .trainer import Trainer
@@ -177,7 +185,9 @@ def square_loss_fns(config):
     return valid_loss_fn, test_metrics_fn
 
 
-def _make_writer(config, resume_dir, write_to_disk):
+def _make_writer(config, resume_dir, write_to_disk, mesh=None):
+    if mesh is not None and not mesh.is_first:
+        return DummyWriter(logdir=resume_dir)
     if write_to_disk and not config.get("nosave", False):
         if resume_dir is None:
             logdir = os.path.join(config.get("logdir_root", "runs"), config["dataset"])
@@ -195,14 +205,16 @@ def _make_writer(config, resume_dir, write_to_disk):
     return DummyWriter(logdir=resume_dir)
 
 
-def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True, device=None):
+def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True, device=None, mesh=None):
     """config → {"density", "trainer", "writer", "visualizer",
     "train_loader", "schema", "device", "config"}. ``device`` is ``None``
     for the card (raises without one) or ``"cpu"``. The weights come from a CPU generator seeded with
     ``config["seed"]``; the train loop's draws (dequantization, Hutchinson
     probes, FID noise) from a generator on ``device`` with the same seed.
     With ``resume_dir`` the writer writes into that run dir, and the
-    trainer restores its checkpoints."""
+    trainer restores its checkpoints. With a ``mesh`` (every rank passes
+    its own, and the same config) the trainer keeps this rank's rows of
+    each batch, and only rank 0 writes and draws."""
     check_supported(config, write_to_disk=write_to_disk)
     device = resolve_device(device)
     pin_fp32()
@@ -227,8 +239,10 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
         n = min(density.num_points, train_loader.num_examples)
         idx = np.random.default_rng(seed).permutation(train_loader.num_examples)[:n]
         density.attach_data(torch.as_tensor(train_loader.x[idx], device=device))
-    writer = _make_writer(config, resume_dir, write_to_disk)
-    visualizer = viz.get_visualizer(config, writer, train_data=train_loader.x)
+    writer = _make_writer(config, resume_dir, write_to_disk, mesh)
+    visualizer = None
+    if mesh is None or mesh.is_first:
+        visualizer = viz.get_visualizer(config, writer, train_data=train_loader.x)
 
     # Loss closures (experiment.py:211-238).
     if not config.get("non_square", False):
@@ -279,6 +293,7 @@ def setup_experiment(config, resume_dir=None, testing=False, write_to_disk=True,
         should_checkpoint_best_valid=config.get("should_checkpoint_best_valid", True),
         only_testing=testing,
         profile_dir=config.get("profile_dir"),
+        batch_sharding=None if mesh is None else data_sharding(mesh),
     )
     return {
         "density": density,
@@ -345,21 +360,22 @@ def _write_run_metadata(writer, config, density):
         pass
 
 
-def train(config, resume_dir=None, device=None):
-    setup = setup_experiment(config, resume_dir=resume_dir, device=device)
-    if resume_dir is None:
+def train(config, resume_dir=None, device=None, mesh=None):
+    setup = setup_experiment(config, resume_dir=resume_dir, device=device, mesh=mesh)
+    if resume_dir is None and (mesh is None or mesh.is_first):
         _write_run_metadata(setup["writer"], config, setup["density"])
     setup["trainer"].train()
     return setup
 
 
-def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, device=None):
+def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, device=None, mesh=None):
     """The test pass of a finished run (experiment.py:333-355): FID on
     50,000 samples, from the ``best_valid`` checkpoint, else ``latest``;
     skipped when ``metrics.json`` exists unless ``overwrite``; the results
     go to ``metrics.json``; then, for image data, the visualiser with the
     run dir as its folder. Returns the setup, with the results under
-    ``"results"`` (only those, when skipped)."""
+    ``"results"`` (only those, when skipped). Under a ``mesh`` every rank
+    tests its rows and rank 0 writes and draws."""
     config = {**config, "num_fid_samples": 50_000}
     if test_fid:
         config["use_test_fid"] = True
@@ -373,11 +389,16 @@ def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, devi
     # The JAX package draws into the run dir after a test of data that is
     # not tabular; a visualiser the port lacks, or matplotlib missing where
     # one draws, raises here, before any work.
-    draws = config["dataset"] not in TABULAR_SHAPES
+    first = mesh is None or mesh.is_first
+    draws = config["dataset"] not in TABULAR_SHAPES and first
     if draws:
         viz.check_visualizer(config, write_folder=resume_dir)
-    setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device)
+    setup = setup_experiment(config, resume_dir=resume_dir, testing=True, write_to_disk=False, device=device,
+                             mesh=mesh)
     results = setup["trainer"].test()
+    setup["results"] = results
+    if not first:
+        return setup
     if draws:
         visualizer = viz.get_visualizer(config, DummyWriter(), train_data=setup["train_loader"].x,
                                         write_folder=resume_dir)
@@ -385,7 +406,6 @@ def test_and_visualize(config, resume_dir, overwrite=False, test_fid=False, devi
             visualizer.visualize(setup["density"], 0, write_folder=resume_dir)
     with open(metrics_path, "w") as f:
         json.dump(results, f, indent=4)
-    setup["results"] = results
     return setup
 
 

@@ -58,6 +58,20 @@ host at the global iteration, as the JAX trainer writes it
 ``best_valid`` (``best_valid`` first when only testing), by copying into its
 tensors, so the graphs it captures later train the restored state.
 
+Under a mesh (``batch_sharding``, ``parallel.mesh.data_sharding``) every
+rank walks the same batches and keeps its rows of each (``batch_split``),
+inside which the draws and the batch-global reductions are global; after
+``loss.backward()`` one all-reduce a dtype makes the gradients the mean over
+the whole world (``all_reduce_gradients``), before the gradient norm, and
+the loss is the data group's mean, so the freeze, the logged loss and the
+history are global. The collectives are explicit, not
+``DistributedDataParallel``: on the card they are NCCL's, enqueued on the
+capture stream, so the step stays captured, its all-reduces inside the
+replay. An evaluation's sums and counts go through ``psum_stats``; a batch
+the data axis does not divide is computed whole on every rank and counted
+once. The parameters and buffers are broadcast from rank 0 after the
+start-up restore.
+
 With a ``profile_dir``, the first epoch after the first that trains (epoch
 2: its steps replay the graphs epoch 1 captured) runs under
 ``torch.profiler`` (CPU and, on the card, CUDA activities) and its Chrome
@@ -76,6 +90,7 @@ import torch
 from ..densities import ELBODensity, NonSquareHeadDensity, PassthroughBeforeEvalDensity
 from ..densities.nonsquare import logdet_fallbacks
 from ..nets import batch_statistics
+from ..parallel.mesh import all_reduce_gradients, batch_split, mean_over_data, psum_stats, replicate
 from .checkpoint import make_checkpoint, restore_checkpoint
 from .writer import DummyWriter
 
@@ -167,8 +182,11 @@ class Trainer:
         should_checkpoint_best_valid=True,
         only_testing=False,
         profile_dir=None,
+        batch_sharding=None,   # parallel.mesh.data_sharding(mesh), or None
     ):
         self.density = density
+        self.batch_sharding = batch_sharding
+        self.mesh = None if batch_sharding is None else batch_sharding.mesh
         # Draws the dequantization noise, the Hutchinson probes, the FID
         # noise and the evaluation closures' elbo samples; a generator on the
         # device the density lives on.
@@ -244,6 +262,8 @@ class Trainer:
                 break
             except FileNotFoundError:
                 print(f"Did not find `{tag}' checkpoint.", file=sys.stderr)
+        if self.mesh is not None:
+            replicate(self.mesh, self.density)
 
     @contextmanager
     def _timed(self, name):
@@ -322,9 +342,12 @@ class Trainer:
         with torch.no_grad():
             kept = _flat_by_dtype(frozen)
         step_flags = {**flags, "likelihood_wt": self._likelihood_wt, "metric_wt": self._metric_wt}
-        loss = elbo_loss(self.density, x, step_flags, self.generator)
-        loss.backward()
-        loss = loss.detach()
+        with batch_split(self.batch_sharding, x) as rows:
+            loss = elbo_loss(self.density, rows, step_flags, self.generator)
+            loss.backward()
+            loss = mean_over_data(loss.detach())
+        if self.mesh is not None:
+            all_reduce_gradients(self.mesh, self._grads)
         with torch.no_grad():
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._grads)))
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
@@ -434,13 +457,29 @@ class Trainer:
 
     def _run_eval(self, fn, loader):
         """The mean of each of ``fn``'s per-example outputs over ``loader``:
-        sums stay where ``fn`` puts them, then one read."""
-        sums, counts = {}, {}
+        sums stay where ``fn`` puts them, then one read. Under a mesh the
+        sums and counts of the batches split over the data axis go through
+        ``psum_stats``; a batch computed whole on every rank counts once."""
+        sharding = self.batch_sharding
+        # Whether the batch was split → (sums, counts).
+        acc = {True: ({}, {}), False: ({}, {})}
         with torch.no_grad():
             for x in loader:
-                for k, v in fn(self.density, x, self.generator).items():
-                    sums[k] = v.sum() if k not in sums else sums[k] + v.sum()
-                    counts[k] = counts.get(k, 0) + v.numel()
+                sums, counts = acc[sharding is not None and sharding.rows(x.shape[0]) is not None]
+                with batch_split(sharding, x) as rows:
+                    for k, v in fn(self.density, rows, self.generator).items():
+                        sums[k] = v.sum() if k not in sums else sums[k] + v.sum()
+                        counts[k] = counts.get(k, 0) + v.numel()
+        (sums, counts), (whole_sums, whole_counts) = acc[True], acc[False]
+        if sums:
+            keys = list(sums)
+            stacked = torch.stack([sums[k] for k in keys])
+            counted = torch.tensor([counts[k] for k in keys], device=stacked.device)
+            psum_stats(stacked, counted, self.mesh)
+            sums, counts = dict(zip(keys, stacked.unbind())), dict(zip(keys, counted.tolist()))
+        for k, v in whole_sums.items():
+            sums[k] = v if k not in sums else sums[k] + v
+            counts[k] = counts.get(k, 0) + whole_counts[k]
         if not sums:
             return {}
         values = torch.stack(list(sums.values())).tolist()

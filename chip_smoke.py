@@ -326,6 +326,30 @@ conv stages:
                   step and kernel 4 need on CUDA tensors, and a data=2 step
                   against one rank's where gloo takes them.
 
+The phases of the asynchronous checkpoint backend and of the ``sigmoid``
+and u-channel ``acl`` layers:
+
+29. async-ckpt -- the flagship's published defaults with the likelihood from
+                  step 1 (FID validation and ``best_valid`` from epoch 1)
+                  into a run dir for 4 epochs of 2 batches, once with
+                  ``--config checkpoint_backend=orbax`` (the save on a
+                  worker thread) and once with the default, from one seed:
+                  Gram/log-det launches equal to the likelihood steps (added
+                  to the kernels line); both runs' ``latest`` and
+                  ``best_valid`` equal tensor for tensor; each run dir
+                  resumed to epoch 6 and equal again; the ms a save blocks
+                  training and the ms of its write, each backend.
+30. cif-u      -- an image CIF at mnist's shape from a schema: mnist's logit
+                  preprocessing with a ``sigmoid`` layer, four checkerboard
+                  ``acl`` layers with one u-channel and batch-norm-free
+                  ResNet couplers at mnist's widths ([64]x8; p and q
+                  [64]x2): 3 steps on the card, each against the CPU's from
+                  the same weights and draws; ``sample(250)``, whose 8
+                  coupler kernel launches (added to the kernels line) take
+                  the passthrough and u channels (C_in 2 and 5), each call
+                  held against the kernel's plain version; the samples
+                  against the conv route; the kernel's ms at C_in 2.
+
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result. It imports nothing of JAX and nothing of ``cmf_tpu``.
@@ -751,6 +775,49 @@ BATCHNORM_ROWS, BATCHNORM_EPOCHS = 3000, 1
 # its validation and test means are not finite, and the phase holds the
 # card's overflowing rows to the CPU's instead.
 EVAL_OVERFLOWS = ("sos --baseline",)
+# The asynchronous checkpoint backend: the flagship's published defaults
+# (early stopping, FID validation on 10,000 samples, a test every 5 epochs,
+# checkpoints `both') with the likelihood from step 1, so that validation
+# and `best_valid' start at epoch 1; 800 rows (2 steps of 400 an epoch) for
+# ASYNC_EPOCHS epochs under each backend from one seed, then each run dir
+# resumed to ASYNC_RESUME_EPOCHS.
+ASYNC_ARGV = ["--model", "non-square", "--dataset", "miniboone", "--synthetic-data",
+              "--config", "likelihood_warmup=False", "--config", "max_dataset_size=800", "--config", "seed=0"]
+ASYNC_EPOCHS, ASYNC_RESUME_EPOCHS = 4, 6
+# An image CIF at mnist's shape (1x28x28) built from a schema, since no
+# published config gives an affine coupling u-channels: mnist's realnvp
+# preprocessing (dequantization, (1 - 2e-6)/256, +1e-6, logit) with a
+# `sigmoid' layer before its logit, then checkerboard `acl' layers with the
+# images group's one u-channel: two at 28x28, a squeeze, two at 14x14 (the
+# coupler's input C_in = passthrough + u = 1 + 1, then 4 + 1). Their couplers
+# are batch-norm-free ResNets at the mnist non-square model's width ([64]x8),
+# p(u|z) and q(u|x) at mnist realnvp's published p_nets and q_nets
+# ([64]x2); a depth cut of the published 10 couplings.
+CIF_U_CHANNELS = 1
+CIF_U_LAM = 1e-6
+
+
+def cif_u_schema():
+    def resnet(blocks):
+        return {"independent_nets": False,
+                "shift_log_scale_net": {"type": "resnet", "hidden_channels": [MNIST_HIDDEN] * blocks,
+                                        "batchnorm": False}}
+
+    def acl(reverse):
+        return {"type": "acl", "mask_type": "checkerboard", "reverse_mask": reverse,
+                "num_u_channels": CIF_U_CHANNELS, "coupler": resnet(8), "p_coupler": resnet(2),
+                "q_coupler": resnet(2)}
+
+    return [{"type": "dequantization"}, {"type": "scalar-mult", "value": (1 - 2 * CIF_U_LAM) / 256},
+            {"type": "scalar-add", "value": CIF_U_LAM}, {"type": "sigmoid"}, {"type": "logit"},
+            acl(False), acl(True), {"type": "squeeze", "factor": 2}, acl(False), acl(True)]
+
+
+# Each CIF layer's `sample' runs two ResNets through the coupler kernel:
+# p(u|z)'s, then the coupling's inverse on [passthrough, u].
+CIF_U_LAYERS, CIF_U_C_IN = 4, (2, 2, 5, 5)
+CIF_U_STEPS, CIF_U_BATCH = 3, 8
+CIF_U_LR = 1e-4
 
 
 def rel_err(got, ref):
@@ -4752,6 +4819,202 @@ def phase_mesh(smi, counts):
     return entry
 
 
+def _load_pt(run_dir, tag):
+    import torch
+
+    return torch.load(os.path.join(run_dir, "checkpoints", f"{tag}.pt"), weights_only=True)
+
+
+def _checkpoints_equal(a, b):
+    """Two checkpoints equal key for key, tensor for tensor."""
+    import torch
+
+    if a.keys() != b.keys():
+        return False
+    for k, v in a.items():
+        if isinstance(v, dict):
+            if not _checkpoints_equal(v, b[k]):
+                return False
+        elif isinstance(v, torch.Tensor):
+            if not (v.dtype == b[k].dtype and torch.equal(v, b[k])):
+                return False
+        elif v != b[k]:
+            return False
+    return True
+
+
+def phase_async_ckpt(smi, root, counts):
+    """The flagship's published defaults into a run dir under each
+    checkpoint backend from one seed (``orbax``: the save on a worker
+    thread), then each resumed: ``latest`` and ``best_valid`` equal tensor
+    for tensor after each; the blocking and the worker's ms per save; the
+    Gram/log-det launches (added to the kernels line)."""
+    import torch
+    from cmf_tpu_torch.main import main as cli_main
+    from cmf_tpu_torch.ops import gram_logdet as gl
+    from cmf_tpu_torch.training.writer import wait_for_checkpoints
+
+    phase_t0 = time.perf_counter()
+    streams = sys.stdout, sys.stderr
+    runs = {}
+    try:
+        # The main path: the counts are read right after it.
+        gl.reset_launch_counts()
+        for backend in ("orbax", "pickle"):
+            argv = ASYNC_ARGV + ["--logdir-root", os.path.join(root, f"async-{backend}"),
+                                 "--config", f"max_epochs={ASYNC_EPOCHS}", "--config", f"checkpoint_backend={backend}"]
+            t0 = time.perf_counter()
+            (setup,) = cli_main(argv)
+            torch.cuda.synchronize()
+            returned_s = time.perf_counter() - t0
+            wait_for_checkpoints()
+            _restore_streams(streams)
+            runs[backend] = (setup, returned_s)
+        fwd, bwd = gl.launch_counts()
+        lik_steps = sum(1 for setup, _ in runs.values() for h in setup["trainer"].history if not h[3])
+        print(f"[async-ckpt] two runs of {ASYNC_EPOCHS} epochs: Gram/log-det launches (fwd, bwd) {fwd}, {bwd}; "
+              f"likelihood steps {lik_steps}")
+        assert bwd == lik_steps > 0 and fwd >= bwd, "the async-ckpt runs did not go through the Gram/log-det kernels"
+        counts["GRAM_FWD"] += fwd
+        counts["GRAM_BWD"] += bwd
+
+        for backend, (setup, returned_s) in runs.items():
+            trainer, writer = setup["trainer"], setup["writer"]
+            blocking_n, blocking_s = trainer.timings["checkpoint"]
+            write_n, write_s = writer.timings["write"]
+            print(f"[async-ckpt] {smi}: {backend}: {blocking_n} saves, {blocking_s / blocking_n * 1e3:.4f} ms a save "
+                  f"blocking training (the copy to the host and the writer's call), {write_s / write_n * 1e3:.4f} ms "
+                  f"a save writing the file ({'on the worker thread' if backend == 'orbax' else 'inside that call'}); "
+                  f"the run {returned_s:.4f} s (host clock)")
+            assert blocking_n == write_n > 0, f"{backend}: saves and writes differ"
+            assert trainer.captured and all(math.isfinite(h[1]) for h in trainer.history)
+        dirs = {b: setup["writer"].logdir for b, (setup, _) in runs.items()}
+        for tag in ("latest", "best_valid"):
+            same = _checkpoints_equal(_load_pt(dirs["orbax"], tag), _load_pt(dirs["pickle"], tag))
+            print(f"[async-ckpt] `{tag}' of the orbax run equal to the pickle run's, tensor for tensor: {same}")
+            assert same, f"`{tag}' differs between the checkpoint backends"
+
+        # Each run dir resumed: the epochs' saves land while training goes on.
+        for backend, run_dir in dirs.items():
+            with open(os.path.join(run_dir, "config.json")) as f:
+                config = json.load(f)
+            config["max_epochs"] = ASYNC_RESUME_EPOCHS
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                json.dump(config, f)
+            (resumed,) = cli_main(["--resume", run_dir])
+            torch.cuda.synchronize()
+            wait_for_checkpoints()
+            _restore_streams(streams)
+            trainer = resumed["trainer"]
+            assert trainer.restored_from == "latest" and trainer.epoch == ASYNC_RESUME_EPOCHS, \
+                f"{backend}: the resume did not train from `latest' to epoch {ASYNC_RESUME_EPOCHS}"
+        for tag in ("latest", "best_valid"):
+            latest = [_load_pt(dirs[b], tag) for b in ("orbax", "pickle")]
+            same = _checkpoints_equal(*latest)
+            print(f"[async-ckpt] resumed to epoch {ASYNC_RESUME_EPOCHS}: `{tag}' (epoch {latest[0]['epoch']}) of "
+                  f"the orbax run equal to the pickle run's: {same}")
+            assert same, f"`{tag}' differs between the checkpoint backends after the resume"
+    finally:
+        _restore_streams(streams)
+    print(f"[async-ckpt] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
+def phase_cif_u(smi, counts):
+    """An image CIF whose checkerboard couplings carry a u-channel, with a
+    ``sigmoid`` layer, at mnist's shape and widths: CIF_U_STEPS steps on the
+    card, each against the same step on the CPU from the same weights and
+    draws; then ``sample(250)`` through the
+    coupler kernel, each call's input the passthrough and u channels, every
+    call held against the kernel's plain version; the samples against the
+    conv route; the kernel's ms at the widened input. Adds its coupler
+    launches to the kernels line."""
+    import torch
+    from cmf_tpu_torch.densities import DiagonalGaussianDensity
+    from cmf_tpu_torch.models import get_density
+    from cmf_tpu_torch.nets import core as nets_core
+    from cmf_tpu_torch.ops import coupler_stack as cs
+    from cmf_tpu_torch.training import make_optimizer
+    from cmf_tpu_torch.training.objectives import SquareObjective
+
+    phase_t0 = time.perf_counter()
+    schema = cif_u_schema()
+    shape = (1, 28, 28)
+    card = get_density(schema, x_shape=shape, device="cuda", generator=torch.Generator().manual_seed(0))
+    flags = SquareObjective().for_epoch(1)
+    opt = make_optimizer({"lr": CIF_U_LR}, card.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(0, 256, (CIF_U_BATCH, *shape), generator=torch.Generator().manual_seed(4)).float().cuda()
+    for step in range(1, CIF_U_STEPS + 1):
+        # Each step from the card's weights on both sides, then the card's
+        # Adam step on the gradients card_vs_cpu leaves on its model.
+        draws = image_square_draws(card, x, gen, CIF_U_CHANNELS)
+        card_vs_cpu({"density": card, "schema": schema}, x, flags, f"cif-u step {step}", STEP_LOSS_TOL,
+                    STEP_GRAD_TOL, **draws)
+        opt.step()
+
+    # The main path: sample(250), each kernel call's input recorded.
+    calls, fused = [], nets_core.fused_resnet_coupler
+
+    def recorded(xx, params, bf16=False):
+        calls.append((xx.clone(), params))
+        return fused(xx, params, bf16)
+
+    nets_core.fused_resnet_coupler = recorded
+    try:
+        cs.reset_launch_counts()
+        samples = card.sample(MNIST_SAMPLE_BATCH, generator=gen)
+        torch.cuda.synchronize()
+        launches = cs.LAUNCHES
+    finally:
+        nets_core.fused_resnet_coupler = fused
+    c_in = [c[0].shape[1] for c in calls]
+    print(f"[cif-u] sample({MNIST_SAMPLE_BATCH}) {tuple(samples.shape)}: coupler kernel launches {launches}, "
+          f"the calls' C_in {c_in}")
+    assert launches == len(calls) == 2 * CIF_U_LAYERS, "sample(): coupler launches != 2 a CIF layer"
+    assert c_in[1::2] == list(reversed(CIF_U_C_IN)), "the couplings' kernel input is not passthrough + u"
+    assert tuple(samples.shape) == (MNIST_SAMPLE_BATCH, *shape) and bool(torch.isfinite(samples).all())
+    counts["COUPLER_LAUNCHES"] += launches
+    with torch.no_grad():
+        for xx, params in calls:
+            got = cs.coupler_stack_cuda(xx, params)
+            ref = cs.coupler_stack_plain(xx, params)
+            err = float((got - ref).abs().max()) / float(ref.abs().max())
+            print(f"[cif-u] coupler_stack B={xx.shape[0]} {xx.shape[1]}->{got.shape[1]} "
+                  f"{xx.shape[2]}x{xx.shape[3]} hidden {params['conv_in']['w'].shape[0]} blocks "
+                  f"{len(params['blocks'])}: max err / max |ref| {err:.3e} (tol {COUPLER_TOL:g})")
+            assert err <= COUPLER_TOL and bool(torch.isfinite(got).all()), \
+                "the coupler kernel disagrees with its plain version on the CIF's input"
+
+    z_shape = next(m for m in card.modules() if type(m) is DiagonalGaussianDensity).shape
+    noise = torch.randn((MNIST_SAMPLE_BATCH, *z_shape), generator=gen, device="cuda")
+    got = card.fixed_sample(noise)
+    with torch.no_grad():
+        ref = card._fixed_sample(noise)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"[cif-u] fixed_sample through the kernel vs the conv route, same noise: max err / max |ref| "
+          f"{err:.3e} (tol {SAMPLE_TOL:g})")
+    assert err <= SAMPLE_TOL, "cif-u samples through the coupler kernel disagree with the conv route"
+
+    # The kernel at the first coupling's widened input.
+    xx, params = next((c for c in calls if c[0].shape[1] == CIF_U_C_IN[0] and len(c[1]["blocks"]) == 8))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: cs.coupler_stack_cuda(xx, params), iters=20, warmup=3)
+        device_ms = profiled_device_ms(lambda: cs.coupler_stack_cuda(xx, params), "coupler_stack_kernel", iters=10)
+        plain_ms = cuda_ms(lambda: cs.coupler_stack_plain(xx, params), iters=5, warmup=1)
+    b, ci, h, w = xx.shape
+    hidden, c_out = params["conv_in"]["w"].shape[0], params["conv_out"]["w"].shape[0]
+    n_weights = sum(t.numel() for t in cs._param_tensors(params))
+    n_bytes = 4 * (xx.numel() + n_weights + b * c_out * h * w)
+    n_flops = cs.flops(b, ci, hidden, c_out, 8, h, w)
+    n_tc = cs.tensor_core_flops(b, hidden, 8, h, w)
+    b_ms, b_by = bound_ms(n_bytes, n_flops - n_tc, 3 * n_tc)
+    dev_txt = "not measured" if device_ms is None else f"{device_ms:.6f} ms"
+    print(f"[cif-u] {smi}: coupler_stack B={b} {ci}->{c_out} {h}x{w} (C_in = passthrough + u): {ms:.6f} ms a "
+          f"call back to back, kernel device time {dev_txt}, plain {plain_ms:.6f} ms; bound {b_ms:.6f} ms "
+          f"({b_by}, 3xTF32)")
+    print(f"[cif-u] {smi}: the phase took {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -4801,6 +5064,8 @@ def main():
         timed("bf16-mnist", phase_bf16_mnist, smi, setup, counts)
         timed("conv-gram", phase_conv_gram, smi)
         kernels.append(timed("mesh", phase_mesh, smi, counts))
+        timed("async-ckpt", phase_async_ckpt, smi, root, counts)
+        timed("cif-u", phase_cif_u, smi, counts)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:

@@ -6,7 +6,8 @@ A bijection is an ``nn.Module`` holding its parameters; constant buffers
 * ``forward(x) -> (z, log_jac)``, log_jac shaped (B,);
 * ``inverse(z) -> (x, log_jac)``; a conditional (CIF) bijection takes the
   index as well, ``forward(x, u)`` and ``inverse(z, u)``;
-* ``inverse_point(z) -> x``, the decode path without the log-jacobian.
+* ``inverse_point(z) -> x``, the decode path without the log-jacobian
+  (``inverse_point(z, u)`` for a conditional one).
 
 Shapes are the static attributes ``x_shape`` / ``z_shape`` (no batch dim).
 No method returns an updated state: the running statistics of the coupler
@@ -30,9 +31,9 @@ class Bijection(nn.Module):
     def inverse(self, z):
         raise NotImplementedError
 
-    def inverse_point(self, z):
+    def inverse_point(self, z, *cond):
         """z → x without the log-jacobian (base.py:47-53)."""
-        x, _ = self.inverse(z)
+        x, _ = self.inverse(z, *cond)
         return x
 
     def inverse_bijection(self):

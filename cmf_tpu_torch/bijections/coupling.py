@@ -5,12 +5,20 @@ z = (x + t)·exp(s); inverse x = z·exp(−s) − t. Log-jac is Σ s over the
 modified elements. Four masks: a generic channel mask, the
 alternating-channel mask of the flat tabular schemas, and the checkerboard
 and split-channel masks of the multiscale image schemas.
+
+In a CIF layer ``forward(x, u)`` and ``inverse(z, u)`` take the index u:
+the coupler sees the passthrough part and then u on the channel axis
+(``cmf_tpu/bijections/coupling.py:33-35``).
 """
 
 import numpy as np
 import torch
 
 from .base import Bijection
+
+
+def _with_u(inputs, u):
+    return inputs if u is None else torch.cat([inputs, u], dim=1)
 
 
 class MaskedChannelwiseCouplingBijection(Bijection):
@@ -37,15 +45,15 @@ class MaskedChannelwiseCouplingBijection(Bijection):
     def _combine(self, passthrough, modified):
         return torch.cat([passthrough, modified], dim=1)[:, self.inv_perm]
 
-    def forward(self, x):
+    def forward(self, x, u=None):
         passthrough, modified = self._split(x)
-        shift, log_scale = self.coupler(passthrough)
+        shift, log_scale = self.coupler(_with_u(passthrough, u))
         z = self._combine(passthrough, (modified + shift) * torch.exp(log_scale))
         return z, log_scale.reshape(x.shape[0], -1).sum(dim=1)
 
-    def inverse(self, z):
+    def inverse(self, z, u=None):
         passthrough, modified = self._split(z)
-        shift, log_scale = self.coupler(passthrough)
+        shift, log_scale = self.coupler(_with_u(passthrough, u))
         x = self._combine(passthrough, modified * torch.exp(-log_scale) - shift)
         return x, -log_scale.reshape(z.shape[0], -1).sum(dim=1)
 
@@ -64,8 +72,8 @@ class AlternatingChannelwiseCouplingBijection(MaskedChannelwiseCouplingBijection
 
 class Checkerboard2dCouplingBijection(Bijection):
     """Spatial checkerboard mask over NCHW images (acl.py:29-78): mask 1
-    passes through. The coupler sees ``mask·x`` with every channel and
-    returns a shift and log-scale for every element."""
+    passes through. The coupler sees ``mask·x`` with every channel (then u)
+    and returns a shift and log-scale for every element."""
 
     def __init__(self, x_shape, coupler, reverse_mask):
         super().__init__(x_shape=x_shape, z_shape=x_shape)
@@ -79,15 +87,15 @@ class Checkerboard2dCouplingBijection(Bijection):
         self.reverse_mask = reverse_mask
         self.register_buffer("mask", torch.as_tensor(mask)[None, None], persistent=False)
 
-    def forward(self, x):
+    def forward(self, x, u=None):
         m = self.mask
-        shift, log_scale = self.coupler(m * x)
+        shift, log_scale = self.coupler(_with_u(m * x, u))
         z = m * x + (1 - m) * ((x + shift) * torch.exp(log_scale))
         return z, ((1 - m) * log_scale).reshape(x.shape[0], -1).sum(dim=1)
 
-    def inverse(self, z):
+    def inverse(self, z, u=None):
         m = self.mask
-        shift, log_scale = self.coupler(m * z)
+        shift, log_scale = self.coupler(_with_u(m * z, u))
         x = m * z + (1 - m) * (z * torch.exp(-log_scale) - shift)
         return x, -((1 - m) * log_scale).reshape(z.shape[0], -1).sum(dim=1)
 
@@ -117,14 +125,14 @@ class SplitChannelwiseCouplingBijection(Bijection):
         parts = (modified, passthrough) if self.reverse_mask else (passthrough, modified)
         return torch.cat(parts, dim=1)
 
-    def forward(self, x):
+    def forward(self, x, u=None):
         passthrough, modified = self._split(x)
-        shift, log_scale = self.coupler(passthrough)
+        shift, log_scale = self.coupler(_with_u(passthrough, u))
         z = self._combine(passthrough, (modified + shift) * torch.exp(log_scale))
         return z, log_scale.reshape(x.shape[0], -1).sum(dim=1)
 
-    def inverse(self, z):
+    def inverse(self, z, u=None):
         passthrough, modified = self._split(z)
-        shift, log_scale = self.coupler(passthrough)
+        shift, log_scale = self.coupler(_with_u(passthrough, u))
         x = self._combine(passthrough, modified * torch.exp(-log_scale) - shift)
         return x, -log_scale.reshape(z.shape[0], -1).sum(dim=1)

@@ -179,6 +179,7 @@ class NonSquareHeadDensity(Density):
         train=False,
         generator=None,
         hutchinson_eps=None,
+        u_noise=None,
         likelihood_wt=1.0,
         metric_wt=1.0,
         add_reconstruction=True,
@@ -188,11 +189,14 @@ class NonSquareHeadDensity(Density):
         ood=False,
     ):
         """``generator`` draws the Hutchinson probes ε (B, d, S) unless the
-        caller passes them as ``hutchinson_eps``. With ``ood`` the likelihood
-        term and the reconstruction error, unweighted (nonsquare.py:141-188)."""
+        caller passes them as ``hutchinson_eps``, and the u of a CIF layer
+        in the low-dimensional prior unless the caller passes its ε as
+        ``u_noise`` (``cmf_tpu`` hands its ``rng`` to the prior). With
+        ``ood`` the likelihood term and the reconstruction error, unweighted
+        (nonsquare.py:141-188)."""
         if ood:
             assert self.log_jacobian_method == "cholesky" or not train
-        prior_info = self.prior.elbo(x)
+        prior_info = self.prior.elbo(x, generator=generator, u_noise=u_noise)
         z = prior_info["low_dim_x"]                 # (B, d)
         low_dim_elbo = prior_info["low_dim_elbo"]   # (B,)
         batch = x.shape[0]
@@ -423,11 +427,12 @@ class ManifoldFlowHeadDensity(NonSquareHeadDensity):
         return Density.step_capturable.fget(self)
 
     def elbo(self, x, train=False, ood=False, likelihood_wt=1.0, add_reconstruction=True,
-             skip_likelihood=False, **kw):
+             skip_likelihood=False, generator=None, u_noise=None, **kw):
         if not train or ood:
             return super().elbo(x, train=train, ood=ood, likelihood_wt=likelihood_wt,
-                                add_reconstruction=add_reconstruction, skip_likelihood=skip_likelihood, **kw)
-        prior_info = self.prior.elbo(x)
+                                add_reconstruction=add_reconstruction, skip_likelihood=skip_likelihood,
+                                generator=generator, u_noise=u_noise, **kw)
+        prior_info = self.prior.elbo(x, generator=generator, u_noise=u_noise)
         batch = x.shape[0]
         likelihood_term = 0.0 if skip_likelihood else prior_info["low_dim_elbo"]
         recon_loss = 0.0

@@ -8,14 +8,16 @@ Hutchinson + CG log-det; the M-flow head with ``m_flow``),
 ``squeeze``, ``logit``, ``tanh``, ``scalar-mult``,
 ``scalar-add``, ``acl`` with alternating-channel, checkerboard and
 split-channel masks, ``made``, ``linear`` (LU), ``invconv`` (LU or free),
-``sos``, ``nsf-ar``, ``nsf-c``, ``bnaf``, ``planar``, and a layer with
-u-channels (``cond-affine``, ``cond-planar``: the CIF ``ELBODensity`` with
-its p(u|z) and q(u|x), on flat or image shapes), MLP, ResNet (with or
-without batch-norm), GlowCNN, constant and identity coupler nets, and the
-standard Gaussian, ``batch-norm`` and the ``passthrough-before-eval``
-wrapper (first in a schema only). Any other layer type, the ``acl`` layer
-with u-channels, or another mask or net raises ``NotImplementedError``
-naming it.
+``sos``, ``nsf-ar``, ``nsf-c``, ``bnaf``, ``planar``, ``sigmoid`` (the
+logit's inverse), and a layer with u-channels (``cond-affine``,
+``cond-planar``, and ``acl``, whose coupler sees the passthrough part and
+then u: the CIF ``ELBODensity`` with its p(u|z) and q(u|x), on flat or
+image shapes), MLP, ResNet (with or without batch-norm), GlowCNN,
+constant and identity coupler nets, and the standard Gaussian,
+``batch-norm`` and the ``passthrough-before-eval`` wrapper (first in a
+schema only): every layer, mask and net ``cmf_tpu``'s factory builds. Any
+other raises ``AssertionError`` in ``cmf_tpu``'s words ("Invalid layer
+type", "Invalid mask type", "Invalid net type").
 
 Weights are drawn from ``generator`` (a ``torch.Generator``, seeded by the
 caller), then the tree moves to ``device``. They are the port's own draws:
@@ -64,10 +66,6 @@ from ..densities import (
     SplitDensity,
 )
 from ..nets import MLP, ConstantNetwork, GlowCNN, IdentityNetwork, ResNet, get_activation
-
-
-def _later(what):
-    return NotImplementedError(f"{what} waits for a later slice of the port")
 
 
 def get_density(schema, x_shape, device, generator=None):
@@ -182,6 +180,8 @@ def get_bijection(layer_config, x_shape, generator):
         return Squeeze2dBijection(x_shape=x_shape, factor=layer_config["factor"])
     if ty == "logit":
         return LogitBijection(x_shape=x_shape)
+    if ty == "sigmoid":
+        return LogitBijection(x_shape=x_shape).inverse_bijection()
     if ty == "tanh":
         return TanhBijection(x_shape=x_shape)
     if ty == "scalar-mult":
@@ -281,18 +281,19 @@ def get_bijection(layer_config, x_shape, generator):
             cond_activation=get_activation(layer_config["cond_activation"]),
             generator=generator,
         )
-    raise _later(f"layer type `{ty}'")
+    raise AssertionError(f"Invalid layer type {ty}")
 
 
 def get_acl_bijection(config, x_shape, generator):
-    if config.get("num_u_channels", 0) > 0:
-        raise _later("the acl layer with u-channels")
+    """(factory.py:258-287) The coupler's input is the passthrough part and
+    then the layer's u-channels."""
     num_x_channels = x_shape[0]
+    num_u_channels = config["num_u_channels"]
     if config["mask_type"] == "checkerboard":
         return Checkerboard2dCouplingBijection(
             x_shape=x_shape,
             coupler=get_coupler(
-                input_shape=(num_x_channels, *x_shape[1:]),
+                input_shape=(num_x_channels + num_u_channels, *x_shape[1:]),
                 num_channels_per_output=num_x_channels,
                 config=config["coupler"],
                 generator=generator,
@@ -302,7 +303,7 @@ def get_acl_bijection(config, x_shape, generator):
 
     def coupler_factory(num_passthrough_channels):
         return get_coupler(
-            input_shape=(num_passthrough_channels, *x_shape[1:]),
+            input_shape=(num_passthrough_channels + num_u_channels, *x_shape[1:]),
             num_channels_per_output=num_x_channels - num_passthrough_channels,
             config=config["coupler"],
             generator=generator,
@@ -313,7 +314,7 @@ def get_acl_bijection(config, x_shape, generator):
         "split-channel": SplitChannelwiseCouplingBijection,
     }
     if config["mask_type"] not in masks:
-        raise _later(f"acl mask type `{config['mask_type']}'")
+        raise AssertionError(f"Invalid mask type {config['mask_type']}")
     return masks[config["mask_type"]](
         x_shape=x_shape, coupler_factory=coupler_factory, reverse_mask=config["reverse_mask"]
     )
@@ -365,7 +366,7 @@ def get_coupler_net(input_shape, num_output_channels, net_config, generator):
         assert num_output_channels == input_shape[0]
         return IdentityNetwork()
     if ty != "mlp":
-        raise _later(f"coupler net type `{ty}'")
+        raise AssertionError(f"Invalid net type {ty}")
     assert len(input_shape) == 1
     return MLP(
         n_in=input_shape[0],

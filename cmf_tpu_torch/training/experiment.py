@@ -17,8 +17,8 @@ image metric analysis (``metric_test_plots``), the centering analysis
 ``print_model``. Each restores the run's ``best_valid`` checkpoint, else
 ``latest``; those that draw need matplotlib, checked before any work.
 
-A config that asks for something this slice does not carry raises
-``NotImplementedError`` here, before any work: it is never quietly skipped.
+A config that ``cmf_tpu`` rejects (an unknown checkpoint backend, a
+coupler net it does not know) raises here, before any work.
 
 Under a mesh (``parallel.mesh.get_mesh``; the CLI's ``--mesh``) setup,
 training and ``--test`` run on every rank, each holding the whole model and
@@ -63,10 +63,6 @@ from .writer import DummyWriter, Writer, check_checkpoint_backend
 FID_DATASETS = list(IMAGE_SHAPES) + list(TABULAR_SHAPES)
 
 
-def _later(what):
-    return NotImplementedError(f"{what} waits for a later slice of the port")
-
-
 COUPLER_NETS = ("mlp", "resnet", "glow-cnn", "constant", "identity")
 _COUPLER_KEYS = ("coupler", "st_coupler", "p_coupler", "q_coupler")
 
@@ -81,19 +77,19 @@ def _coupler_nets(layer):
 
 
 def check_schema(schema):
-    """Raise naming the first layer option or coupler net of ``schema`` that
-    waits for a later slice: an ``acl`` layer with u-channels, or a net type
-    outside ``COUPLER_NETS``."""
+    """Raise ``ValueError`` naming the first coupler net of ``schema`` whose
+    type is outside ``COUPLER_NETS``, which ``cmf_tpu``'s factory rejects
+    too ("Invalid net type")."""
     for layer in schema:
-        if layer["type"] == "acl" and layer.get("num_u_channels", 0) > 0:
-            raise _later("the `acl' layer with u-channels")
         for net in _coupler_nets(layer):
             if net["type"] not in COUPLER_NETS:
-                raise _later(f"the `{net['type']}' coupler net")
+                raise ValueError(f"Invalid net type {net['type']}")
 
 
 def check_supported(config, write_to_disk=True):
-    """Raise for every config entry that asks for what the port lacks."""
+    """Raise for a config entry that ``cmf_tpu`` rejects: a coupler net it
+    does not know, or, where the run writes, an unknown checkpoint
+    backend."""
     check_schema(get_schema(config))
     if write_to_disk and not config.get("nosave", False):
         check_checkpoint_backend(config.get("checkpoint_backend", "pickle"))

@@ -46,7 +46,9 @@ after epochs 1, 1 + epochs_per_test, ..., each followed by the visualiser;
 then a ``latest`` checkpoint.
 Non-finite losses leave ``nan_during_training`` / ``_validation`` /
 ``_test`` checkpoints. Both passes run between epochs, outside the graphs;
-each FID reads the host once, and so does a checkpoint's copy to the host.
+each FID reads the host once, and so does a checkpoint's copy to the host
+(``timings["checkpoint"]``: that copy and the writer's call, which under
+the asynchronous backend returns before the file is written).
 Under the passthrough wrapper each evaluation (the validation, the test's
 metrics and its FID, the visualiser, the OOD pass) first refreshes the
 batch-norm statistics over the stored rows, then puts the training state

@@ -11,26 +11,98 @@ checkpoints from ``logdir``.
 
 Checkpoints are torch-native: ``torch.save`` of a dict whose tensors all lie
 on the CPU, so a checkpoint loads on any device, written to a tmp file and
-then moved into place with ``os.replace``. The JAX package's ``pickle``
-backend maps to this format; its ``orbax`` backend has no counterpart.
+then moved into place with ``os.replace``. Both of the JAX package's
+backends write this one file, ``<tag>.pt``, so a run written under either
+resumes under the other:
+
+* ``pickle`` writes it before ``write_checkpoint`` returns;
+* ``orbax`` (the JAX package's asynchronous backend) hands it to one worker
+  thread and returns, so training goes on while the file is written. The
+  payload is already a host copy (``checkpoint.make_checkpoint``), so the
+  worker only serialises. One save is in flight per process: the next save,
+  every load and the interpreter's exit wait for it first, and a save that
+  failed on the worker raises there. A single file replaced atomically
+  cannot be torn, so the JAX package's token over its two artifacts has no
+  counterpart.
+
+A writer's ``timings["write"]`` is [saves, seconds] of the writes
+themselves, on the worker under ``orbax``; the trainer's
+``timings["checkpoint"]`` is the part that blocks training (the copy to the
+host, and under ``pickle`` the write).
 """
 
 import json
 import os
 import sys
+import threading
 import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+CHECKPOINT_BACKENDS = ("pickle", "orbax")
+
 
 def check_checkpoint_backend(backend):
-    if backend == "orbax":
-        raise NotImplementedError(
-            "checkpoint_backend `orbax' is the JAX package's backend (orbax); the port writes "
-            "torch-native checkpoints: use `pickle', its default"
-        )
-    if backend != "pickle":
-        raise ValueError(f"unknown checkpoint_backend `{backend}'")
+    if backend not in CHECKPOINT_BACKENDS:
+        raise ValueError(f"unknown checkpoint_backend `{backend}': one of {', '.join(CHECKPOINT_BACKENDS)}")
+
+
+class _BackgroundSaves:
+    """The process's asynchronous checkpoint writes (``_OrbaxIO``,
+    ``cmf_tpu/training/writer.py:20-146``): one worker thread, one save in
+    flight. ``wait`` returns once the pending save is on disk, or raises
+    its error; the worker and the exit hook start with the first save."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._executor = None
+        self._pending = None
+
+    def submit(self, job):
+        with self._lock:
+            self._wait()
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cmf-ckpt")
+                # The threading module runs these in reverse order of
+                # registration at shutdown, so this drain runs before the
+                # executor's own hook (registered when concurrent.futures
+                # imported) stops taking work.
+                threading._register_atexit(_drain_at_exit)
+            self._pending = self._executor.submit(job)
+
+    def wait(self):
+        with self._lock:
+            self._wait()
+
+    def _wait(self):
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()  # a failed save raises here
+
+
+_SAVES = _BackgroundSaves()
+
+
+def _drain_at_exit():
+    """The pending save, at the interpreter's exit. A failed one ends the
+    process with status 1: raised from this hook, Python would print it
+    and exit 0, as if the checkpoint were on disk."""
+    try:
+        _SAVES.wait()
+    except Exception:
+        traceback.print_exc()
+        print("a checkpoint save failed on the worker thread; exiting with status 1", file=sys.stderr)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def wait_for_checkpoints():
+    """Block until the pending asynchronous save is on disk; raise its
+    error if it failed."""
+    _SAVES.wait()
 
 
 def _checkpoint_path(checkpoints_dir, tag):
@@ -38,6 +110,7 @@ def _checkpoint_path(checkpoints_dir, tag):
 
 
 def _load_checkpoint_from(checkpoints_dir, tag):
+    _SAVES.wait()
     path = _checkpoint_path(checkpoints_dir, tag)
     if not os.path.exists(path):
         raise FileNotFoundError(path)
@@ -74,6 +147,8 @@ class Writer:
         checkpoint_backend="pickle",
     ):
         check_checkpoint_backend(checkpoint_backend)
+        self._ckpt_backend = checkpoint_backend
+        self.timings = {"write": [0, 0.0]}
         if make_subdir:
             os.makedirs(logdir, exist_ok=True)
             timestamp = time.strftime("%b%d_%H-%M-%S")
@@ -137,12 +212,24 @@ class Writer:
         np.save(os.path.join(self.logdir, f"{tag}.npy"), array)
 
     def write_checkpoint(self, tag, data):
-        """Atomic: a tmp file, then ``os.replace``."""
+        """Atomic: a tmp file, then ``os.replace``; under ``orbax`` on the
+        worker thread, after the pending save. ``data`` must not share
+        memory with live state: the worker reads it after this returns."""
         os.makedirs(self._checkpoints_dir, exist_ok=True)
         final_path = _checkpoint_path(self._checkpoints_dir, tag)
+        if self._ckpt_backend == "orbax":
+            _SAVES.submit(lambda: self._write(final_path, data))
+        else:
+            self._write(final_path, data)
+
+    def _write(self, final_path, data):
+        start = time.perf_counter()
         tmp_path = final_path + ".tmp"
         torch.save(data, tmp_path)
         os.replace(tmp_path, final_path)
+        entry = self.timings["write"]
+        entry[0] += 1
+        entry[1] += time.perf_counter() - start
 
     def load_checkpoint(self, tag):
         return _load_checkpoint_from(self._checkpoints_dir, tag)

@@ -118,9 +118,22 @@ def test_hutchinson_waits_for_a_later_slice():
 
 
 def test_unported_layer_raises_naming_it():
+    """The small schema with a ``sigmoid`` layer in its low-dimensional
+    prior (after the tail's ``flatten``) builds in both packages and gives
+    the same elbo; a layer type neither knows raises in ``cmf_tpu``'s
+    words."""
     from cmf_tpu_torch.models import get_density
 
     schema = small_schema()
-    schema.insert(2, {"type": "sigmoid"})
-    with pytest.raises(NotImplementedError, match="`sigmoid'"):
+    schema.insert(7, {"type": "sigmoid"})
+    assert [layer["type"] for layer in schema[5:8]] == ["non-square-base", "flatten", "sigmoid"]
+    jd, jv, td = build_pair(schema, seed=9)
+    x = batch(8, seed=9)
+    info, _ = jax.jit(lambda v, xx: jd.elbo(v, xx))(jv, jnp.asarray(x))
+    with torch.no_grad():
+        elbo = td.elbo(t(x))["elbo"].numpy()
+    want = np.asarray(info["elbo"])
+    np.testing.assert_allclose(elbo, want, rtol=ELBO_TOL, atol=ELBO_TOL * np.abs(want).max())
+    schema[7] = {"type": "softsign"}
+    with pytest.raises(AssertionError, match="Invalid layer type softsign"):
         get_density(schema, x_shape=(11,), device="cpu")

@@ -153,35 +153,38 @@ _PORTED = [
     (lambda: _published("non-square", "mnist", resnet_batchnorm=True), "non-square-mnist-resnet_batchnorm-True"),
     (lambda: _flagship(batch_norm=True), "batch_norm-True"),
     (lambda: _flagship(compute_dtype="bfloat16"), "compute_dtype-bfloat16"),
-]
-# (config, id, what the refusal must name): one case per layer type that
-# waits, each from a published config that has it.
-_UNPORTED = [
-    (lambda: _flagship(checkpoint_backend="orbax"), "checkpoint_backend-orbax", "JAX package's backend"),
+    (lambda: _flagship(checkpoint_backend="orbax"), "checkpoint_backend-orbax"),
 ]
 
 
-@pytest.mark.parametrize("make, match", [(m, w) for m, _, w in _UNPORTED], ids=[i for _, i, _ in _UNPORTED])
-def test_unported_config_raises(make, match):
+def test_unported_config_raises():
     """The flagship's published defaults pass (a run dir, early stopping,
-    FID), and so do mnist's. Still refused, naming what waits: the orbax
-    checkpoint backend."""
+    FID), and so do mnist's. Refused, as ``cmf_tpu`` refuses them: an
+    unknown checkpoint backend (where the run writes) and an unknown
+    coupler net."""
     config = _flagship()
     assert config["early_stopping"] and config["use_fid"] and not config.get("nosave")
     check_supported(config)
     check_supported({**config, "dataset": "mnist"})
-    with pytest.raises(NotImplementedError, match="later slice|JAX package's backend") as raised:
-        check_supported(make())
-    assert match in str(raised.value)
+    with pytest.raises(ValueError, match="unknown checkpoint_backend `zarr'"):
+        check_supported({**config, "checkpoint_backend": "zarr"})
+    check_supported({**config, "checkpoint_backend": "zarr", "nosave": True})
+    schema = small_schema()
+    schema[2]["coupler"] = {"independent_nets": False, "shift_log_scale_net": {"type": "transformer"}}
+    with pytest.raises(ValueError, match="Invalid net type transformer"):
+        check_schema(schema)
 
 
 def test_acl_with_u_channels_is_refused():
     """No published config gives an affine coupling u-channels; a schema
-    that does is refused by name."""
+    that does (with its p and q couplers) passes, as ``cmf_tpu`` builds
+    it."""
     schema = small_schema()
-    schema = [{**layer, "num_u_channels": 2} if layer["type"] == "acl" else layer for layer in schema]
-    with pytest.raises(NotImplementedError, match="`acl' layer with u-channels"):
-        check_schema(schema)
+    mlp = {"independent_nets": False, "shift_log_scale_net": {"type": "mlp", "hidden_channels": [8],
+                                                              "activation": "tanh"}}
+    schema = [{**layer, "num_u_channels": 2, "p_coupler": mlp, "q_coupler": mlp} if layer["type"] == "acl"
+              else layer for layer in schema]
+    check_schema(schema)
 
 
 @pytest.mark.parametrize("make", [m for m, _ in _PORTED], ids=[i for _, i in _PORTED])
@@ -195,8 +198,8 @@ def test_ported_config_passes(make):
     without ``--baseline``, ``maf --baseline``, ``sos --baseline``),
     the flagship's Hutchinson estimate, batch-norm in a non-square
     model (the flagship's ``batch_norm=True`` and mnist's batch-norm
-    ResNet couplers), and bfloat16 compute, with their published
-    settings."""
+    ResNet couplers), bfloat16 compute and the asynchronous checkpoint
+    backend, with their published settings."""
     check_supported(make())
 
 

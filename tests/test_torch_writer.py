@@ -132,8 +132,16 @@ def test_dummy_writer_writes_nothing_but_loads(tmp_path):
 
 
 def test_orbax_backend_names_the_jax_package(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax.*JAX package"):
-        Writer(str(tmp_path), make_subdir=False, tee=False, checkpoint_backend="orbax")
+    """The JAX package's asynchronous backend by its name: the writer saves
+    on its worker and reloads the same ``<tag>.pt``; an unknown backend
+    raises."""
+    w = Writer(str(tmp_path), make_subdir=False, tee=False, checkpoint_backend="orbax")
+    w.write_checkpoint("latest", {"epoch": 1, "w": torch.arange(3.0)})
+    ckpt = w.load_checkpoint("latest")
+    assert ckpt["epoch"] == 1 and torch.equal(ckpt["w"], torch.arange(3.0))
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["latest.pt"]
+    with pytest.raises(ValueError, match="unknown checkpoint_backend `zarr'"):
+        Writer(str(tmp_path), make_subdir=False, tee=False, checkpoint_backend="zarr")
 
 
 def _density():

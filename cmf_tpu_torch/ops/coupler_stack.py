@@ -12,15 +12,18 @@ its shifted map and its weight rounded to bf16 and sums the products in
 fp32, while the residual stream, the biases, the 1×1 ``conv_out`` and the
 head stay fp32.
 
-The kernel is CUDA C++ for Hopper in ``csrc/coupler_stack.cu`` (the source
-says which TPU kernel it replaces, what bounds it and what its design does
-about it): one thread-block cluster per image, the feature maps in shared
-memory, every hidden×hidden 3×3 conv on the tensor cores, in 3×TF32 or,
-for ``bf16=True``, in one bf16 pass. This module holds what surrounds it in
-Python, where the CPU tests reach it: the launch plan (``plan_launch``, and
-the shape gate ``coupler_kernel_available``), the TF32 split of the weights
-(``tf32_round``, ``split_tf32``) and their packing in mma fragment order
-(``pack_weights``: ``mma_fragments`` or ``bf16_fragments``).
+The kernels are CUDA C++ for Hopper in ``csrc/coupler_stack.cu`` (the source
+says which TPU kernel they replace, what bounds them and what their designs
+do about it): one thread-block cluster per image, the feature maps in shared
+memory, every hidden×hidden 3×3 conv on the tensor cores — in 3×TF32 with
+``mma.sync``, or for ``bf16=True`` in one bf16 pass with ``wgmma`` on bf16
+maps and weight tiles streamed by bulk copies. This module holds what
+surrounds them in Python, where the CPU tests reach it: the launch plans
+(``plan_launch``, ``plan_launch_bf16``, and the shape gate
+``coupler_kernel_available``), the TF32 split of the weights
+(``tf32_round``, ``split_tf32``) and their packing (``pack_weights``:
+``mma_fragments`` in mma fragment order, or ``wgmma_tiles`` as the bf16
+kernel's A descriptors read them).
 
 Beside it is its plain PyTorch version, ``coupler_stack_plain``, which repeats
 the TPU kernel's arithmetic — each 3×3 conv as a sum of 9 shifted,
@@ -212,7 +215,8 @@ def coupler_kernel_available(c_in, hidden, h, w):
     width at most 64, C_in at most the padded hidden width, and a band of at
     most 256 pixels whose two maps and weight ring fit 232,448 B of shared
     memory with at most 16 CTAs an image. ``ResNet.forward`` asks this before
-    it routes a coupler to the kernel."""
+    it routes a coupler to the kernel, in either arithmetic: the bf16 kernel
+    has a plan for every shape it admits (``plan_launch_bf16``)."""
     return next(_plans(c_in, hidden, h, w), None) is not None
 
 
@@ -237,6 +241,104 @@ def plan_launch(batch, c_in, hidden, h, w):
     return min(plans, key=lambda p: (_cost(batch, p), p.cluster))
 
 
+# ---------------------------------------------------------- bf16 launch plan
+# The bf16 kernel: two warpgroups, each on a fixed run of n of the
+# band's padded pixels (rows of W+1) with wgmma m64nNk16; n is one of the
+# compiled widths (csrc/coupler_stack.cu::CMF_BF16_DISPATCH).
+BF16_WIDTHS = (32, 64, 104, 112, 136, 160, 184, 208, 232, 256)
+BF16_WARPGROUPS = 2
+BF16_MAX_STAGES = 9       # weight ring: one conv's 9 taps
+BF16_STAGE_BYTES = 128 * 64  # a tap's 64 × 64 bf16 weight tile
+BF16_HEAD_BYTES = 640     # the ring's mbarriers, a zero block, a trash slot
+# Fixed part of a CTA's time in pixels, for what a CTA does whatever its
+# band (the epilogues' latency, the cluster barriers, conv_in and the head).
+BF16_FIXED = 200
+
+
+def bf16_hidden(hidden):
+    """Channels the bf16 kernel's maps hold: the hidden width padded to 16,
+    a k-step of its wgmma. Its weight tiles are padded to 64 × 64; a k-step
+    past the map's channels reads zeros."""
+    return -(-hidden // 16) * 16
+
+
+def bf16_map_pixels(n, w):
+    """Pixels a bf16 map holds: a leading zero, the halo row above, the
+    warpgroups' 2n padded pixels, the halo row below and the last tap's reach
+    (one pixel), rounded up to 8."""
+    return -(-(BF16_WARPGROUPS * n + 2 * (w + 1) + 2) // 8) * 8
+
+
+def bf16_smem_bytes(c_in, cm, n, map_px, stages):
+    """The mbarriers, zero block and trash slot; the ring of weight tiles;
+    the bf16 maps H and T (T also holds the bf16 input, C_in channels,
+    before conv 0); h in fp32 over the warpgroups' 2n pixels."""
+    return (BF16_HEAD_BYTES + stages * BF16_STAGE_BYTES + 2 * cm * map_px + 2 * max(cm, c_in) * map_px
+            + 4 * cm * BF16_WARPGROUPS * n)
+
+
+@dataclass(frozen=True)
+class Bf16Plan:
+    cluster: int      # CTAs an image, one band of rows each
+    rows: int         # rows of the tallest band
+    n: int            # padded pixels a warpgroup (its wgmma N)
+    map_px: int       # pixels a bf16 map
+    cm: int           # channels a map (hidden padded to 16)
+    hidden: int       # hidden width padded to 32 or 64 (the small buffer's stride)
+    stages: int       # weight ring stages
+    smem_bytes: int
+
+    def bands(self, h):
+        """(first row, rows) of each CTA's band, as the kernel cuts them."""
+        starts = [r * h // self.cluster for r in range(self.cluster + 1)]
+        return [(a, b - a) for a, b in zip(starts[:-1], starts[1:])]
+
+
+def _bf16_plans(c_in, hidden, h, w):
+    """Every bf16 plan for this shape, one per band height: the narrowest
+    compiled width that covers the band, and the deepest ring that fits."""
+    if not coupler_kernel_available(c_in, hidden, h, w):
+        return
+    cm, hidden_p = bf16_hidden(hidden), padded_hidden(hidden)
+    last_rows = None
+    for cluster in range(1, min(MAX_CLUSTER, h) + 1):
+        rows = -(-h // cluster)
+        if rows == last_rows:
+            continue
+        last_rows = rows
+        n = next((n for n in BF16_WIDTHS if BF16_WARPGROUPS * n >= rows * (w + 1)), None)
+        if n is None:
+            continue
+        map_px = bf16_map_pixels(n, w)
+        for stages in range(BF16_MAX_STAGES, 1, -1):
+            smem = bf16_smem_bytes(c_in, cm, n, map_px, stages)
+            if smem <= SMEM_LIMIT:
+                yield Bf16Plan(cluster, rows, n, map_px, cm, hidden_p, stages, smem)
+                break
+
+
+def _bf16_cost(batch, plan):
+    """Relative time of a bf16 plan: the waves of clusters the card runs at
+    once (one CTA an SM), times the pixels a CTA runs plus a fixed part. At
+    three of the four mnist coupler shapes it picks the plan that ran
+    fastest on an H100 (``tools/coupler_bf16_compare.py --plans``); at B=50,
+    2->4 channels, 14x14 cluster 4 ran 6% faster than its pick, cluster 2:
+    its small CTAs fit two an SM, which the model does not count."""
+    waves = -(-batch // ACTIVE_CLUSTERS[plan.cluster])
+    return waves * (BF16_WARPGROUPS * plan.n + BF16_FIXED)
+
+
+def plan_launch_bf16(batch, c_in, hidden, h, w):
+    """The bf16 kernel's launch plan for a call: the cheapest by
+    ``_bf16_cost``, ties to the smaller cluster."""
+    plans = list(_bf16_plans(c_in, hidden, h, w))
+    if not plans:
+        raise ValueError(
+            f"coupler_stack bf16 kernel has no launch plan for C_in={c_in}, hidden={hidden}, {h}x{w}"
+        )
+    return min(plans, key=lambda p: (_bf16_cost(batch, p), p.cluster))
+
+
 # --------------------------------------------------------------- CUDA kernel
 def _lib():
     from .cuda_build import load_library
@@ -246,20 +348,27 @@ def _lib():
     # cuts a device pointer.
     if lib.cmf_coupler_stack_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.cmf_coupler_stack_fwd, lib.cmf_coupler_stack_fwd_bf16):
-            fn.argtypes = [p, p, p, p] + [i] * 10 + [p]
-            fn.restype = ctypes.c_int
+        lib.cmf_coupler_stack_fwd.argtypes = [p, p, p, p] + [i] * 10 + [p]
+        lib.cmf_coupler_stack_fwd_bf16.argtypes = [p, p, p, p] + [i] * 12 + [p]
         lib.cmf_coupler_stack_max_clusters.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
-        lib.cmf_coupler_stack_max_clusters.restype = ctypes.c_int
+        lib.cmf_coupler_stack_max_clusters_bf16.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.cmf_coupler_stack_fwd, lib.cmf_coupler_stack_fwd_bf16,
+                   lib.cmf_coupler_stack_max_clusters, lib.cmf_coupler_stack_max_clusters_bf16):
+            fn.restype = ctypes.c_int
     return lib
 
 
-def max_active_clusters(plan, h, w):
-    """How many clusters of ``plan`` for an h×w image the current card holds
-    at once (``cudaOccupancyMaxActiveClusters``)."""
+def max_active_clusters(plan, h, w, c_in=1):
+    """How many clusters of ``plan`` (a ``LaunchPlan`` or a ``Bf16Plan``) for
+    an h×w image with c_in channels the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
     n = ctypes.c_int(0)
-    rc = _lib().cmf_coupler_stack_max_clusters(h, w, plan.hidden, plan.cluster, plan.stride,
-                                               plan.kc, ctypes.byref(n))
+    if isinstance(plan, Bf16Plan):
+        rc = _lib().cmf_coupler_stack_max_clusters_bf16(c_in, h, w, plan.hidden, plan.cm, plan.cluster,
+                                                        plan.n, plan.map_px, plan.stages, ctypes.byref(n))
+    else:
+        rc = _lib().cmf_coupler_stack_max_clusters(h, w, plan.hidden, plan.cluster, plan.stride,
+                                                   plan.kc, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {rc}")
     return n.value
@@ -290,21 +399,16 @@ def mma_fragments(w, kc):
     return torch.stack([hi, lo], dim=5).reshape(-1)
 
 
-def bf16_fragments(w, kc):
-    """Hidden×hidden 3×3 weights (n, O, I, 3, 3) → the bf16 variant's weight
-    stream: per conv, per tap, per chunk of kc input channels, per k-step of
-    16, per m-tile of 16 outputs, the 32 lanes' A fragments of
-    ``mma.m16n8k16.bf16``, 8 bf16 a lane. Lane 4·gid + tig holds, in order,
-    W[o][k], W[o][k+4], W[o+8][k], W[o+8][k+4], W[o][k+8], W[o][k+12],
-    W[o+8][k+8], W[o+8][k+12] with o = 16·m + gid, k = tig: the mma's k
-    index 8r + 2·tig + j stands for input channel 8r + tig + 4j, so a lane's
-    B fragment loads the channels the TF32 kernel's lane loads, free of
-    bank conflicts. Rounded to bf16 to nearest, ties to even."""
-    n, o, i = w.shape[:3]
-    t = w.permute(0, 3, 4, 2, 1)  # (n, ky, kx, I, O)
-    # I → (chunk, k-step, r, j, tig); O → (m-tile, o+8, gid)
-    t = t.reshape(n, 9, i // kc, kc // 16, 2, 2, 4, o // 16, 2, 8)
-    t = t.permute(0, 1, 2, 3, 7, 9, 6, 4, 8, 5)  # (n, tap, chunk, k-step, m, gid, tig, r, o+8, j)
+def wgmma_tiles(w):
+    """Hidden×hidden 3×3 weights (n, 64, 64, 3, 3), zero past the hidden
+    width, → the bf16 kernel's weight stream: per conv, per tap, one 64 × 64
+    A tile as its wgmma descriptor reads it in the no-swizzle K-major layout,
+    [channel group of 8][64 outputs][8 channels]: core matrices of 8 outputs
+    × 8 channels (128 contiguous bytes), 128 B apart along the outputs and
+    1024 B along the channels. Rounded to bf16 to nearest, ties to even."""
+    n = w.shape[0]
+    t = w.permute(0, 3, 4, 1, 2)  # (n, ky, kx, O, I)
+    t = t.reshape(n, 9, 64, 8, 8).permute(0, 1, 3, 2, 4)  # (n, tap, group, O, 8)
     return t.contiguous().to(torch.bfloat16).reshape(-1)
 
 
@@ -312,12 +416,12 @@ def pack_weights(params, c_in, hidden, c_out, device, kc=32, bf16=False):
     """The kernel's two weight buffers, checking every shape on the way.
 
     ``frags``: the 2K hidden×hidden convs (conv1, conv2 of each block in
-    order) as ``mma_fragments``, or with ``bf16`` as ``bf16_fragments``,
-    hidden padded to 32 or 64 with zeros. ``small``: conv_in as
+    order) as ``mma_fragments``, hidden padded to 32 or 64 with zeros; or
+    with ``bf16`` as ``wgmma_tiles``, both padded to 64. ``small``: conv_in as
     [C_in][tap][hidden] (rounded to bf16 with ``bf16``), the 2K biases
     [2K][hidden], the 1×1 conv as [hidden][C_out], its bias, head_w and
     head_b, fp32 as they are (``csrc/coupler_stack.cu``). ``kc`` is the
-    plan's chunk depth, 32 or 16."""
+    fp32 plan's chunk depth, 32 or 16; the bf16 packing has none."""
     hp = padded_hidden(hidden)
     pad = hp - hidden
 
@@ -339,9 +443,12 @@ def pack_weights(params, c_in, hidden, c_out, device, kc=32, bf16=False):
     _check("head_b", params["head_b"], (c_out, 1, 1), device)
     b_out = vec("conv_out.b", params["conv_out"]["b"], c_out)
 
-    if convs:
+    if convs and bf16:
+        frags = wgmma_tiles(F.pad(torch.stack(convs), (0, 0, 0, 0, 0, 64 - hidden, 0, 64 - hidden)))
+    elif convs:
         w = F.pad(torch.stack(convs), (0, 0, 0, 0, 0, pad, 0, pad))
-        frags = bf16_fragments(w, kc) if bf16 else mma_fragments(w, kc)
+        frags = mma_fragments(w, kc)
+    if convs:
         bias = F.pad(torch.stack(biases), (0, pad)).reshape(-1)
     else:
         frags = torch.zeros(8 if bf16 else 4, dtype=torch.bfloat16 if bf16 else torch.float32, device=device)
@@ -374,13 +481,15 @@ def _param_tensors(params):
             params["head_w"], params["head_b"]]
 
 
-def packed_weights(params, c_in, hidden, c_out, device, kc, bf16=False):
+def packed_weights(params, c_in, hidden, c_out, device, kc=32, bf16=False):
     """``pack_weights``, from the cache where the same tensors, unchanged,
-    were packed before in the same arithmetic."""
+    were packed before in the same arithmetic (the bf16 packing under a key
+    of its own, whatever ``kc``)."""
     tensors = _param_tensors(params)
     if any(t.is_inference() for t in tensors):  # no version counter to check
         return pack_weights(params, c_in, hidden, c_out, device, kc, bf16)
-    key = (str(device), kc, bool(bf16), c_in, hidden, c_out, tuple(id(t) for t in tensors))
+    packing = "wgmma_tiles" if bf16 else ("mma_fragments", kc)
+    key = (str(device), packing, c_in, hidden, c_out, tuple(id(t) for t in tensors))
     versions = tuple(t._version for t in tensors)
     hit = _PACKED.get(key)
     if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], tensors)):
@@ -410,9 +519,16 @@ def coupler_stack_cuda(x, params, bf16=False):
     num_blocks = len(params["blocks"])
     if batch < 1:
         raise ValueError(f"coupler_stack kernel takes B ≥ 1; got B={batch}")
-    plan = plan_launch(batch, c_in, hidden, h, w)
+    if bf16:
+        plan = plan_launch_bf16(batch, c_in, hidden, h, w)
+        geometry = (plan.cm, num_blocks, c_out, plan.cluster, plan.n, plan.map_px, plan.stages)
+        kc = 32
+    else:
+        plan = plan_launch(batch, c_in, hidden, h, w)
+        geometry = (num_blocks, c_out, plan.cluster, plan.stride, plan.kc)
+        kc = plan.kc
     x = x.contiguous()
-    frags, small = packed_weights(params, c_in, hidden, c_out, x.device, plan.kc, bf16)
+    frags, small = packed_weights(params, c_in, hidden, c_out, x.device, kc, bf16)
     out = torch.empty((batch, c_out, h, w), dtype=torch.float32, device=x.device)
     # A packed buffer that leaves the cache while the kernel is queued is
     # safe: the caching allocator hands its memory only to later work on the
@@ -421,11 +537,8 @@ def coupler_stack_cuda(x, params, bf16=False):
     entry = lib.cmf_coupler_stack_fwd_bf16 if bf16 else lib.cmf_coupler_stack_fwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = entry(
-            x.data_ptr(), frags.data_ptr(), small.data_ptr(), out.data_ptr(),
-            batch, c_in, h, w, plan.hidden, num_blocks, c_out, plan.cluster, plan.stride,
-            plan.kc, stream,
-        )
+        rc = entry(x.data_ptr(), frags.data_ptr(), small.data_ptr(), out.data_ptr(),
+                   batch, c_in, h, w, plan.hidden, *geometry, stream)
     if rc != 0:
         raise RuntimeError(f"coupler_stack kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1

@@ -9,6 +9,7 @@ the last partial batch.
 import numpy as np
 import torch
 
+from ..tracing import span
 from .image import DATASET_SHAPES as IMAGE_SHAPES, get_image_datasets
 from .tabular import DATASET_SHAPES as TABULAR_SHAPES, get_tabular_datasets
 from .two_d import _GENERATORS as _TWO_D_GENERATORS, get_2d_datasets
@@ -55,7 +56,9 @@ class ArrayLoader:
         x_dev = self._device_x()
         order = torch.as_tensor(order[: len(self) * self.batch_size], device=self.device)
         for b in range(len(self)):
-            yield x_dev.index_select(0, order[b * self.batch_size : (b + 1) * self.batch_size])
+            with span("loader/batch"):
+                batch = x_dev.index_select(0, order[b * self.batch_size : (b + 1) * self.batch_size])
+            yield batch
 
 
 def get_loaders(dataset, config, device, seed=0, synthetic=None, data_root=None):

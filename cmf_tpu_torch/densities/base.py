@@ -31,6 +31,8 @@ same keys as the JAX package's ``{"params", "state"}`` trees, so
 import torch
 from torch import nn
 
+from ..tracing import span
+
 
 class Density(nn.Module):
     def elbo(self, x, **kw):
@@ -41,7 +43,7 @@ class Density(nn.Module):
         return all(m.step_capturable for m in self.children() if isinstance(m, Density))
 
     def sample(self, num_samples, generator=None):
-        with torch.inference_mode():
+        with span("sample"), torch.inference_mode():
             return self._sample(num_samples, generator)
 
     def fixed_sample(self, noise=None):

@@ -53,6 +53,7 @@ from ..ops.gram_logdet import (
     fused_gram_logdet_sharded_available,
 )
 from ..parallel.mesh import batch_all, draw_rows, global_rows, jacobian_column_spec
+from ..tracing import span
 
 _VALID_METHODS = ("cholesky", "hutch_with_cg")
 _VALID_SOLVERS = ("auto", "gram", "cg")
@@ -91,10 +92,12 @@ def exact_log_det_from_columns(jac_cols):
     (``_kernel_or_fallback``); outside it, the plain Gram and the jittered
     Cholesky."""
     d, big_d = jac_cols.shape[0], jac_cols.shape[-1]
-    if not fused_gram_logdet_available(d, big_d):
-        gram = gram_from_columns(jac_cols)
-        return gram, cholesky_logdet(gram)[0]
-    return _kernel_or_fallback(*fused_gram_logdet(jac_cols))
+    with span("head/gram_logdet"):
+        if not fused_gram_logdet_available(d, big_d):
+            gram = gram_from_columns(jac_cols)
+            return gram, cholesky_logdet(gram)[0]
+        gram, log_det = fused_gram_logdet(jac_cols)
+    return _kernel_or_fallback(gram, log_det)
 
 
 def _kernel_or_fallback(gram, kernel_log_det):
@@ -106,11 +109,12 @@ def _kernel_or_fallback(gram, kernel_log_det):
     the gradient as 0·NaN. Under a mesh the predicate is the global batch's
     (an all-reduce MIN), so every rank takes the same branch."""
     d = gram.shape[-1]
-    ok = batch_all(torch.isfinite(kernel_log_det).all())
-    eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
-    fallback_log_det, _ = cholesky_logdet(torch.where(ok, eye, gram))
-    _fallback_counter(ok.device).add_(~ok)
-    return gram, torch.where(ok, kernel_log_det, fallback_log_det)
+    with span("head/logdet_fallback"):
+        ok = batch_all(torch.isfinite(kernel_log_det).all())
+        eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
+        fallback_log_det, _ = cholesky_logdet(torch.where(ok, eye, gram))
+        _fallback_counter(ok.device).add_(~ok)
+        return gram, torch.where(ok, kernel_log_det, fallback_log_det)
 
 
 class NonSquareHeadDensity(Density):
@@ -196,7 +200,8 @@ class NonSquareHeadDensity(Density):
         (nonsquare.py:141-188)."""
         if ood:
             assert self.log_jacobian_method == "cholesky" or not train
-        prior_info = self.prior.elbo(x, generator=generator, u_noise=u_noise)
+        with span("head/encode"):
+            prior_info = self.prior.elbo(x, generator=generator, u_noise=u_noise)
         z = prior_info["low_dim_x"]                 # (B, d)
         low_dim_elbo = prior_info["low_dim_elbo"]   # (B,)
         batch = x.shape[0]
@@ -300,12 +305,15 @@ class NonSquareHeadDensity(Density):
         )
         columns = spec.columns(d) if sharded else None
         program = self._dense_decode_program()
-        if program is not None and not program.has_conv:
-            recon_flat, jac_cols = program(z, columns)
-        else:
-            recon_flat, jac_cols = self._generic_jacobian(z, columns)
+        with span("head/decode_jacobian"):
+            if program is not None and not program.has_conv:
+                recon_flat, jac_cols = program(z, columns)
+            else:
+                recon_flat, jac_cols = self._generic_jacobian(z, columns)
         if sharded:
-            gram, log_det = _kernel_or_fallback(*fused_gram_logdet_sharded(jac_cols, spec))
+            with span("head/gram_logdet"):
+                gram, log_det = fused_gram_logdet_sharded(jac_cols, spec)
+            gram, log_det = _kernel_or_fallback(gram, log_det)
         else:
             gram, log_det = exact_log_det_from_columns(jac_cols)
         return log_det, recon_flat, gram
@@ -478,7 +486,8 @@ class NonSquareTailDensity(Density):
         return padded[:, self.inverse_permutation].reshape(batch, *self.x_shape)
 
     def _sample(self, num_samples, generator=None):
-        return self.decode(self.prior._sample(num_samples, generator))
+        with span("sample/latent"):
+            return self.decode(self.prior._sample(num_samples, generator))
 
     def _fixed_sample(self, noise=None):
         return self.decode(self.prior._fixed_sample(noise))

@@ -46,6 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import forward_ad
 
+from ..tracing import span
+
 LAUNCHES = 0
 CALLS = 0
 BF16_LAUNCHES = 0
@@ -507,43 +509,44 @@ def coupler_stack_cuda(x, params, bf16=False):
     """The kernel: x (B, C_in, H, W) CUDA fp32 → (B, C_out, H, W), in the
     bf16 variant's arithmetic with ``bf16``."""
     global LAUNCHES, BF16_LAUNCHES
-    if x.dim() != 4:
-        raise ValueError(f"x: expected (B, C_in, H, W), got {tuple(x.shape)}")
-    if not x.is_cuda:
-        raise ValueError(f"x: expected a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x: expected float32, got {x.dtype}")
-    batch, c_in, h, w = x.shape
-    hidden = params["conv_in"]["w"].shape[0]
-    c_out = params["conv_out"]["w"].shape[0]
-    num_blocks = len(params["blocks"])
-    if batch < 1:
-        raise ValueError(f"coupler_stack kernel takes B ≥ 1; got B={batch}")
-    if bf16:
-        plan = plan_launch_bf16(batch, c_in, hidden, h, w)
-        geometry = (plan.cm, num_blocks, c_out, plan.cluster, plan.n, plan.map_px, plan.stages)
-        kc = 32
-    else:
-        plan = plan_launch(batch, c_in, hidden, h, w)
-        geometry = (num_blocks, c_out, plan.cluster, plan.stride, plan.kc)
-        kc = plan.kc
-    x = x.contiguous()
-    frags, small = packed_weights(params, c_in, hidden, c_out, x.device, kc, bf16)
-    out = torch.empty((batch, c_out, h, w), dtype=torch.float32, device=x.device)
-    # A packed buffer that leaves the cache while the kernel is queued is
-    # safe: the caching allocator hands its memory only to later work on the
-    # same stream, which runs after the kernel.
-    lib = _lib()
-    entry = lib.cmf_coupler_stack_fwd_bf16 if bf16 else lib.cmf_coupler_stack_fwd
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = entry(x.data_ptr(), frags.data_ptr(), small.data_ptr(), out.data_ptr(),
-                   batch, c_in, h, w, plan.hidden, *geometry, stream)
-    if rc != 0:
-        raise RuntimeError(f"coupler_stack kernel launch failed with CUDA error {rc}")
-    LAUNCHES += 1
-    BF16_LAUNCHES += bool(bf16)
-    return out
+    with span("ops/coupler_stack"):
+        if x.dim() != 4:
+            raise ValueError(f"x: expected (B, C_in, H, W), got {tuple(x.shape)}")
+        if not x.is_cuda:
+            raise ValueError(f"x: expected a CUDA tensor, got {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"x: expected float32, got {x.dtype}")
+        batch, c_in, h, w = x.shape
+        hidden = params["conv_in"]["w"].shape[0]
+        c_out = params["conv_out"]["w"].shape[0]
+        num_blocks = len(params["blocks"])
+        if batch < 1:
+            raise ValueError(f"coupler_stack kernel takes B ≥ 1; got B={batch}")
+        if bf16:
+            plan = plan_launch_bf16(batch, c_in, hidden, h, w)
+            geometry = (plan.cm, num_blocks, c_out, plan.cluster, plan.n, plan.map_px, plan.stages)
+            kc = 32
+        else:
+            plan = plan_launch(batch, c_in, hidden, h, w)
+            geometry = (num_blocks, c_out, plan.cluster, plan.stride, plan.kc)
+            kc = plan.kc
+        x = x.contiguous()
+        frags, small = packed_weights(params, c_in, hidden, c_out, x.device, kc, bf16)
+        out = torch.empty((batch, c_out, h, w), dtype=torch.float32, device=x.device)
+        # A packed buffer that leaves the cache while the kernel is queued is
+        # safe: the caching allocator hands its memory only to later work on the
+        # same stream, which runs after the kernel.
+        lib = _lib()
+        entry = lib.cmf_coupler_stack_fwd_bf16 if bf16 else lib.cmf_coupler_stack_fwd
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = entry(x.data_ptr(), frags.data_ptr(), small.data_ptr(), out.data_ptr(),
+                       batch, c_in, h, w, plan.hidden, *geometry, stream)
+        if rc != 0:
+            raise RuntimeError(f"coupler_stack kernel launch failed with CUDA error {rc}")
+        LAUNCHES += 1
+        BF16_LAUNCHES += bool(bf16)
+        return out
 
 
 def fused_resnet_coupler(x, params, bf16=False):

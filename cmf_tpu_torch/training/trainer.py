@@ -79,6 +79,11 @@ With a ``profile_dir``, the first epoch after the first that trains (epoch
 ``torch.profiler`` (CPU and, on the card, CUDA activities) and its Chrome
 trace goes into that folder, once a trainer, as the JAX trainer traces its
 first post-compile epoch with ``jax.profiler`` (trainer.py:113-116,255-259).
+Under any profiler the step's layers show as spans (``tracing.span``):
+``train/step`` around ``step``, ``train/replay`` around a graph's replay,
+``train/capture`` around a key's eager first step and its capture,
+``step/forward``, ``step/backward`` and ``step/optimizer`` inside the step
+function, and ``train/epoch_read`` around the epoch's host read.
 """
 
 import math
@@ -93,6 +98,7 @@ from ..densities import ELBODensity, NonSquareHeadDensity, PassthroughBeforeEval
 from ..densities.nonsquare import logdet_fallbacks
 from ..nets import batch_statistics
 from ..parallel.mesh import all_reduce_gradients, batch_split, mean_over_data, psum_stats, replicate
+from ..tracing import span
 from .checkpoint import make_checkpoint, restore_checkpoint
 from .writer import DummyWriter
 
@@ -148,7 +154,8 @@ class _CapturedStep:
 
     def __call__(self, x):
         self.x.copy_(x)
-        self.graph.replay()
+        with span("train/replay"):
+            self.graph.replay()
         return self.out.clone().unbind()
 
 
@@ -299,21 +306,25 @@ class Trainer:
     def step(self, x, flags):
         """One optimizer step by this trainer's route. Returns (loss,
         grad_norm) as 0-dim device tensors; nothing is read on the host."""
-        self._prepare(flags)
-        if not self.captured:
-            return self._step_fn(x, flags)
-        key = _flag_key(flags) + (tuple(x.shape),)
-        if key not in self.graphs:
-            self.graphs[key] = None
-            return self._on_capture_stream(x, flags)
-        if self.graphs[key] is None:
-            self.graphs[key] = self._capture(x, flags)
-        return self.graphs[key](x)
+        with span("train/step"):
+            self._prepare(flags)
+            if not self.captured:
+                return self._step_fn(x, flags)
+            key = _flag_key(flags) + (tuple(x.shape),)
+            if key not in self.graphs:
+                self.graphs[key] = None
+                with span("train/capture"):
+                    return self._on_capture_stream(x, flags)
+            if self.graphs[key] is None:
+                with span("train/capture"):
+                    self.graphs[key] = self._capture(x, flags)
+            return self.graphs[key](x)
 
     def eager_step(self, x, flags):
         """The same step, run eagerly whatever the route."""
-        self._prepare(flags)
-        return self._step_fn(x, flags)
+        with span("train/step"):
+            self._prepare(flags)
+            return self._step_fn(x, flags)
 
     def _prepare(self, flags):
         self._likelihood_wt.fill_(flags["likelihood_wt"])
@@ -345,19 +356,23 @@ class Trainer:
             kept = _flat_by_dtype(frozen)
         step_flags = {**flags, "likelihood_wt": self._likelihood_wt, "metric_wt": self._metric_wt}
         with batch_split(self.batch_sharding, x) as rows:
-            loss = elbo_loss(self.density, rows, step_flags, self.generator)
-            loss.backward()
+            with span("step/forward"):
+                loss = elbo_loss(self.density, rows, step_flags, self.generator)
+            with span("step/backward"):
+                loss.backward()
             loss = mean_over_data(loss.detach())
-        if self.mesh is not None:
-            all_reduce_gradients(self.mesh, self._grads)
-        with torch.no_grad():
-            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._grads)))
-            ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
-        optimizer.step()
-        with torch.no_grad():
-            for idx, new in _flat_by_dtype(frozen).values():
-                keep = torch.where(ok, new, kept[new.dtype][1]).split([frozen[i].numel() for i in idx])
-                torch._foreach_copy_([frozen[i] for i in idx], [k.view_as(frozen[i]) for k, i in zip(keep, idx)])
+        with span("step/optimizer"):
+            if self.mesh is not None:
+                all_reduce_gradients(self.mesh, self._grads)
+            with torch.no_grad():
+                grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._grads)))
+                ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+            optimizer.step()
+            with torch.no_grad():
+                for idx, new in _flat_by_dtype(frozen).values():
+                    keep = torch.where(ok, new, kept[new.dtype][1]).split([frozen[i].numel() for i in idx])
+                    torch._foreach_copy_([frozen[i] for i in idx],
+                                         [k.view_as(frozen[i]) for k, i in zip(keep, idx)])
         return loss, grad_norm
 
     def _on_capture_stream(self, x, flags):
@@ -406,8 +421,9 @@ class Trainer:
             steps = [torch.stack(self.step(x, flags)) for x in self.train_loader]
             # The epoch's host reads: its losses and grad norms, and the count
             # of log-det fallbacks.
-            values = torch.stack(steps).tolist()
-            fallbacks = logdet_fallbacks()
+            with span("train/epoch_read"):
+                values = torch.stack(steps).tolist()
+                fallbacks = logdet_fallbacks()
         skip = bool(flags["skip_likelihood"])
         self.history += [(epoch, loss, norm, skip) for loss, norm in values]
         # The reference's every-10-steps scalars, from the epoch's one read
